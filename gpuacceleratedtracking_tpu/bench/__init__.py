@@ -11,7 +11,6 @@ from .harness import (
     run_replica_benchmark,
     run_track_benchmark,
 )
-from .autotune import autotune_tile_rows, best_tile_rows
 from .sweep import collect_results, dict_list, run_sweep, savename
 from .results import eval_results
 
@@ -26,8 +25,6 @@ __all__ = [
     "run_reduction_benchmark",
     "run_replica_benchmark",
     "run_track_benchmark",
-    "autotune_tile_rows",
-    "best_tile_rows",
     "collect_results",
     "dict_list",
     "run_sweep",

@@ -3,16 +3,15 @@
 Fourth model family beyond the reference's `GNSSDICT`
 (`/root/reference/src/GPUAcceleratedTracking.jl:39-42`, GPS L1/L5 only), and
 the stress test of this framework's replica formulations: the BOC(1,1)
-subcarrier flips sign MID-CHIP, doubling the transition density the
-transition/rows bank kernels must reconstruct per 128-lane row.
+subcarrier flips sign MID-CHIP, doubling the chip-transition density the
+bank correlators must place correctly.
 
-TPU-first representation: the subcarrier is folded into the code table at
+Representation: the subcarrier is folded into the code table at
 build time. A BOC(1,1) chip ``c`` becomes the half-chip pair ``(+c, -c)``,
 so the framework sees an ordinary +/-1 code of length ``2 * 4092 = 8184``
 at ``2 * 1.023 = 2.046`` Mchip/s with a 4 ms period — exactly what a
-texture/memory fetch would read anyway, and every existing kernel
-(transition, rows, comp, fused) works unchanged, with `num_j`/window
-geometry automatically accounting for the doubled boundary rate. Phase
+texture/memory fetch would read anyway, and every correlator works
+unchanged. Phase
 units throughout the framework are then HALF-chips; divide by 2 for ICD
 chips.
 

@@ -6,8 +6,8 @@ L1OF is CDMA-free FDMA: every satellite transmits the *same* 511-chip maximal-
 length sequence at 0.511 Mchip/s, separated by per-satellite carrier frequencies
 ``1602 MHz + k * 562.5 kHz`` for frequency channel ``k in -7..6``. That maps
 directly onto this framework's channel banks, which already carry a per-channel
-carrier frequency (`ops/pallas_epl.py` bank params) — the FDMA split costs
-nothing on TPU.
+carrier frequency (the bank correlators' ``[K]`` carrier parameters) — the
+FDMA split costs nothing.
 
 The m-sequence: 9-stage shift register, generator polynomial ``x^9 + x^5 + 1``
 (primitive over GF(2)), output tapped from stage 7, all-ones initial state,

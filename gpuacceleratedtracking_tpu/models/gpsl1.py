@@ -1,6 +1,6 @@
 """GPS L1 C/A Gold-code generation (IS-GPS-200 §3.3.2.3).
 
-TPU-native replacement for the reference's external GNSSSignals.jl dependency
+Replacement for the reference's external GNSSSignals.jl dependency
 (`/root/reference/src/GPUAcceleratedTracking.jl:21`, `GNSSDICT` at `:39-42`): the
 reference obtains its PRN code matrix from `GPSL1(use_gpu=Val(true)).codes`; here we
 generate the same 1023-chip C/A Gold codes from the G1/G2 LFSR definition, as a

@@ -12,10 +12,9 @@ Reference semantics reproduced exactly (`gen_signal.jl:64-70`):
   carrier[n]      = exp(i * (2*pi * f_carrier / f_s * n + start_carrier_phase))
   signal[..., n]  = chip[n] * carrier[n]            (identical across antennas)
 
-TPU-first departures from the reference: the sample axis is **last** (lane axis
-of the 8x128 VPU / MXU tiling, row-major contiguous), instead of Julia's
-column-major samples-first layout — the same memory order, the idiomatic axis
-convention for each platform. Optional AWGN and a code-frequency override
+Departures from the reference: the sample axis is **last** (row-major
+contiguous), instead of Julia's column-major samples-first layout — the same
+memory order, the idiomatic axis convention for each platform. Optional AWGN and a code-frequency override
 support closed-loop tracking tests, which the reference delegates to
 Tracking.jl.
 """
@@ -233,7 +232,7 @@ def gen_signal_mixed(
 def soa(signal: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Split complex64 into the structure-of-arrays (re, im) float32 planes.
 
-    The kernels operate on separate planes, the TPU analog of the reference's
+    The kernels operate on separate planes, like the reference's
     `StructArray{ComplexF32}` layout (`gen_signal.jl:181-184`).
     """
     return jnp.real(signal), jnp.imag(signal)

@@ -1,4 +1,4 @@
-"""GNSS system descriptors — the TPU framework's equivalent of GNSSSignals.jl systems.
+"""GNSS system descriptors — this framework's equivalent of GNSSSignals.jl systems.
 
 The reference resolves `"GPSL1"/"GPSL5"` through `GNSSDICT`
 (`/root/reference/src/GPUAcceleratedTracking.jl:39-42`) into GNSSSignals.jl system

@@ -2,8 +2,8 @@
 
 The reference implements 11 hand-written shared-memory tree reductions
 (Harris #3/#4/#5 × scalar/complex/complex-multi, `/root/reference/src/
-reduction.jl:1-682`) because CUDA makes cross-block summation manual. On TPU
-the ladder collapses: `jnp.sum` over the sample axis compiles to VPU/MXU
+reduction.jl:1-682`) because CUDA makes cross-block summation manual. In XLA
+the ladder collapses: `jnp.sum` over the sample axis compiles to fused
 reductions with f32 accumulation. What remains worth keeping is the reference's
 *fusion-degree axis* — pure vs cplx vs cplx_multi
 (`/root/reference/src/GPUAcceleratedTracking.jl:63-66`) — because it is the

@@ -10,14 +10,19 @@ callable with one uniform signature::
        code_frequency, code_phase,
        sample_shifts, code_length) -> (accum_re, accum_im)
 
-Pallas kernels self-register on import of ``ops.pallas_epl``.
+``bank`` is the bank correlator for the platform JAX runs on: the Pallas
+Triton kernel on the GPU, where it measured faster than the plain XLA bank
+in every flagship shape (PERF.md), and ``xla_bank`` elsewhere. ``xla_bank``
+stays the reference the kernel is checked against.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import correlate
+import jax
+
+from . import correlate, triton_bank
 
 ALGORITHMS: Dict[str, Callable] = {}
 
@@ -27,9 +32,6 @@ def register(name: str, fn: Callable) -> None:
 
 
 def get(name: str) -> Callable:
-    # Import kernels lazily so listing/registering doesn't pay Pallas import cost.
-    if name not in ALGORITHMS and name.startswith("pallas"):
-        from . import pallas_epl  # noqa: F401  (registers itself)
     try:
         return ALGORITHMS[name]
     except KeyError:
@@ -39,18 +41,22 @@ def get(name: str) -> Callable:
 
 
 def names() -> list[str]:
-    from . import pallas_epl  # noqa: F401
-
     return sorted(ALGORITHMS)
+
+
+def correlate_bank(*args, **kwargs):
+    """`triton_bank` on the GPU, `xla_bank` on any other backend."""
+    if jax.default_backend() == "gpu":
+        return triton_bank.correlate_triton_bank(*args, **kwargs)
+    return correlate.correlate_xla_bank(*args, **kwargs)
 
 
 register("fused_xla", correlate.correlate_fused)
 register("unfused_xla", correlate.correlate_unfused)
 register("xla_bank", correlate.correlate_xla_bank)
+register("triton_bank", triton_bank.correlate_triton_bank)
+register("bank", correlate_bank)
 
 # Algorithms with the bank signature ([K]-array channel parameters and a
 # shared front-end signal) -- the 3-D multi-satellite family.
-BANK_ALGORITHMS = {
-    "xla_bank", "pallas_bank", "pallas_bank_onehot", "pallas_bank_rows",
-    "pallas_bank_comp", "pallas_bank_auto",
-}
+BANK_ALGORITHMS = {"bank", "xla_bank", "triton_bank"}

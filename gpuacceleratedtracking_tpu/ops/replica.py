@@ -3,10 +3,9 @@
 Capability equivalents of the reference's replica kernels
 (`/root/reference/src/algorithms.jl:13-140`): the global-memory and
 texture-memory `gen_code_replica_*_kernel!` variants and the carrier generation
-embedded in `downconvert_and_correlate_kernel_*`. TPUs have no texture units;
-the capability behind the texture path — cheap wrapped fractional-phase code
-lookup — is provided by integer phase arithmetic (`floor` + `mod`) feeding a
-gather, and by a quantized fixed-point NCO variant reproducing the
+embedded in `downconvert_and_correlate_kernel_*`. The capability behind the
+texture path — cheap wrapped fractional-phase code lookup — is provided by
+integer phase arithmetic (`floor` + `mod`) feeding a gather, and by a quantized fixed-point NCO variant reproducing the
 texture-quantization error envelope studied in
 `/root/reference/scripts/code_replica_experiment.jl`.
 
@@ -27,7 +26,7 @@ def precise_div(num, den):
     """f32 ``num / den`` robust to XLA's reciprocal-multiply lowering.
 
     XLA lowers an f32 divide by a RUNTIME operand to reciprocal-multiply on
-    CPU/TPU, off by 1-2 ulp even when the exact quotient is representable:
+    the CPU, off by 1-2 ulp even when the exact quotient is representable:
     Galileo E1's chip rate ``2046000 / 8184000 = 0.25`` computes as
     0.249999985 under jit — and with chip boundaries landing exactly on
     sample boundaries, a 1-ulp-low rate shifts EVERY boundary one whole
@@ -114,7 +113,7 @@ def gen_code_replica_quantized(
     code_length: int,
     phase_bits: int = 12,
 ) -> jax.Array:
-    """Fixed-point-NCO replica: the TPU analog of the texture-memory lookup.
+    """Fixed-point-NCO replica: the counterpart of the texture-memory lookup.
 
     The reference's texture path quantizes the normalized fetch coordinate to the
     texture's 8.8 fixed-point interpolation grid (hardware wrap + nearest
@@ -122,7 +121,7 @@ def gen_code_replica_quantized(
     speed; its code-phase error envelope is the subject of
     `scripts/code_replica_experiment.jl` (mean 0.03%, max 3.17%). Here the
     per-sample fractional code phase is quantized to ``phase_bits`` fractional
-    bits before the floor, reproducing that accuracy/speed trade on TPU. The
+    bits before the floor, reproducing that accuracy/speed trade. The
     default 12 bits measures mean 0.006 % / max 0.02 % chip mismatch over the
     reference's N-sweep (scripts/code_replica_experiment.py) — 5x tighter
     than the reference texture path's mean 0.03 % / max 3.17 % — at identical
@@ -153,7 +152,7 @@ def gen_carrier_replica(
 ) -> tuple[jax.Array, jax.Array]:
     """(cos, sin) planes of ``exp(i(2 pi f/fs n + phi))`` — the per-sample
     `CUDA.sincos` of the reference (`/root/reference/src/algorithms.jl:573`),
-    vectorized on the VPU with phase wrapping for f32 accuracy."""
+    vectorized with phase wrapping for f32 accuracy."""
     f_cyc = jnp.float32(carrier_frequency / sampling_frequency)
     phi_cyc = jnp.float32(start_carrier_phase_rad) / jnp.float32(2 * jnp.pi)
     n_hi = jnp.arange(0, num_samples + 127, 128, dtype=jnp.float32)[:, None]

@@ -30,11 +30,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import registry
 from ..tracking.state import TrackConfig, TrackOutput, TrackState
-from ..tracking.track import (
-    _bank_code_tile_kwargs,
-    _bank_kernel_kwargs,
-    loop_update,
-)
+from ..tracking.track import loop_update
 from .correlate import advance_phases, nominal_advance_tables
 from .mesh import CHAN_AXIS, TIME_AXIS
 
@@ -87,7 +83,6 @@ def track_bank_sharded(
     )
 
     is_bank_algo = config.algorithm in registry.BANK_ALGORITHMS
-    bank_kwargs = _bank_kernel_kwargs(config) if is_bank_algo else {}
 
     def channel_step(state, sre, sim, ti):
         f_car = config.intermediate_frequency + state.carrier_doppler
@@ -106,9 +101,8 @@ def track_bank_sharded(
         # shard, so the carry stays consistent without a broadcast.
         return loop_update(config, state, are, aim)
 
-    def bank_step(states_, sre, sim, ti, tile_kwargs):
-        # One bank-kernel launch for all local channels (vmap of a pallas_call
-        # re-lowers per channel; the bank kernel batches on its grid instead).
+    def bank_step(states_, sre, sim, ti):
+        # One bank correlation for all local channels.
         f_car = config.intermediate_frequency + states_.carrier_doppler  # [K]
         f_code = config.code_frequency + states_.code_doppler
         phi_car_l, phi_code_l = advance(
@@ -119,7 +113,8 @@ def track_bank_sharded(
             sre, sim, codes, states_.prn, f_car,
             carrier_phase=phi_car_l, code_frequency=f_code,
             code_phase=phi_code_l, sample_shifts=config.sample_shifts,
-            code_length=config.code_length, **bank_kwargs, **tile_kwargs,
+            code_length=config.code_length,
+            sampling_frequency=config.sampling_frequency,
         )
         are = lax.psum(are, time_axis)
         aim = lax.psum(aim, time_axis)
@@ -129,20 +124,11 @@ def track_bank_sharded(
 
     def body(local_states, sre, sim):
         ti = lax.axis_index(time_axis)
-        # Per-channel code tables are loop constants — hoist the gather+tile
-        # above the per-block scan (geometry uses the per-shard block length).
-        tile_kwargs = (
-            _bank_code_tile_kwargs(
-                config, codes, local_states.prn, num_samples=local_n
-            )
-            if is_bank_algo
-            else {}
-        )
 
         def block(st, sig):
             bre, bim = sig
             if is_bank_algo:
-                return bank_step(st, bre, bim, ti, tile_kwargs)
+                return bank_step(st, bre, bim, ti)
             st2, out = jax.vmap(lambda s: channel_step(s, bre, bim, ti))(st)
             return st2, out
 

@@ -7,7 +7,7 @@ num_of_shifts`` replica halo so every tap is a shifted view
 (`/root/reference/src/benchmarks.jl:847-848`). Sharding that design across
 chips would need an overlap-save halo exchange of signal/replica samples.
 
-The TPU-native design needs **no halo exchange at all**: code and carrier
+This design needs **no halo exchange at all**: code and carrier
 replicas are pure phase arithmetic from (frequency, start-phase, sample index),
 so each time shard regenerates its own replica — including the tap lookahead
 past its block edge — from a phase-advanced NCO, and the only collective is a
@@ -127,7 +127,7 @@ def correlate_sharded(
     and the two nominal frequencies must be static Python floats (they seed the
     f64 advance tables). Returns accumulators replicated over ``time_axis``;
     with ``beamform=True`` the antenna axis is psum-reduced (TP-style
-    beamforming over ICI) and the result is ``[L]``.
+    beamforming) and the result is ``[L]``.
     """
     if nominal_code_frequency is None:
         raise ValueError("nominal_code_frequency (static) is required")

@@ -2,9 +2,9 @@
 
 The reference is single-process/single-GPU (SURVEY.md §1: no NCCL/MPI anywhere
 in `/root/reference/Project.toml`); its only cross-block combiner is
-`CUDA.@atomic` (`/root/reference/src/algorithms.jl:628-629`). The TPU-native
-scale-out replaces that with a `jax.sharding.Mesh` over ICI and XLA
-collectives, with the framework's three physical axes:
+`CUDA.@atomic` (`/root/reference/src/algorithms.jl:628-629`). The scale-out
+here is a `jax.sharding.Mesh` and XLA collectives (NCCL on the GPU), with the
+framework's three axes:
 
 - ``chan``  — satellite channels (data parallel: zero communication),
 - ``time``  — the sample axis of one integration block (sequence parallel:
@@ -31,8 +31,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a mesh with the given ``{axis_name: size}`` layout.
 
-    Sizes must multiply to the device count used. ``jax.devices()`` order is
-    ICI-contiguous on TPU slices, so adjacent mesh coordinates ride ICI links.
+    Sizes must multiply to the device count used. The cards of one host are
+    joined all to all (NVLink), so device order does not matter: the layout
+    follows the algorithm only.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     names = tuple(axis_sizes)

@@ -10,10 +10,10 @@ the pilot-driven NCOs. This is the capability the reference's GPSL5 benchmarks
 feed into (role of Tracking.jl's multi-component `TrackingState`; L5 system
 usage `/root/reference/src/benchmarks.jl:43-61`, `scripts/run_benchmarks_gpsl5.jl`).
 
-TPU-first design: the K dual channels run as ONE 2K-channel bank through the
-fused bank kernels — data codes in columns [0, P), pilot codes in [P, 2P) of a
-combined code table — so the whole dual bank is still a single kernel launch
-per block, and the loop closure stays [K]-vector math.
+The K dual channels run as ONE 2K-channel bank through the bank correlator —
+data codes in columns [0, P), pilot codes in [P, 2P) of a combined code
+table — so the whole dual bank is still one correlation per block, and the
+loop closure stays [K]-vector math.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from jax import lax
 from ..models import gpsl5
 from ..ops import registry
 from .state import TrackConfig, TrackOutput, TrackState
-from .track import _bank_code_tile_kwargs, _bank_kernel_kwargs, loop_update
+from .track import loop_update
 
 
 class DualTrackOutput(NamedTuple):
@@ -89,9 +89,6 @@ def track_bank_dual(
     prn2 = jnp.concatenate([states.prn, states.prn + num_p])
     corr = registry.get(config.algorithm)
     is_bank = config.algorithm in registry.BANK_ALGORITHMS
-    kwargs = _bank_kernel_kwargs(config) if is_bank else {}
-    if is_bank:
-        kwargs.update(_bank_code_tile_kwargs(config, codes, prn2))
 
     def correlate(st, sre, sim):
         f_car = config.intermediate_frequency + st.carrier_doppler   # [K]
@@ -106,7 +103,8 @@ def track_bank_dual(
                 carrier_phase=dup(st.carrier_phase),
                 code_frequency=dup(f_code), code_phase=dup(st.code_phase),
                 sample_shifts=config.sample_shifts,
-                code_length=config.code_length, **kwargs,
+                code_length=config.code_length,
+                sampling_frequency=config.sampling_frequency,
             )
 
         def one(prn, fc, ph, fcode, cp):

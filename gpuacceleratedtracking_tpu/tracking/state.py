@@ -2,8 +2,8 @@
 
 The Tracking.jl `TrackingState` role (the reference builds one for its CPU
 baseline, `/root/reference/src/benchmarks.jl:54`), as a JAX pytree that lives
-on device across `lax.scan` steps — loop closure without host round-trips,
-which is the whole point of the TPU re-design (SURVEY.md §7 step 4).
+on device across `lax.scan` steps — loop closure without host round-trips
+(SURVEY.md §7 step 4).
 """
 
 from __future__ import annotations
@@ -38,14 +38,7 @@ class TrackConfig:
     dll_order: int = 2
     fll_bandwidth: float = 4.0   # 0 disables the FLL assist
     cn0_window: int = 20
-    algorithm: str = "fused_xla"
-    # Launch shape for the Pallas bank kernels (None = kernel default).
-    # Tune per scenario with `bench.autotune.autotune_tile_rows` — the
-    # occupancy launch_configuration analog.
-    tile_rows: Optional[int] = None
-    # Channels per bank-kernel grid step (group-shared boundary math and row
-    # phasors); None = kernel default.
-    chans_per_step: Optional[int] = None
+    algorithm: str = "bank"
     # Secondary (overlay) code wipe-off: +/-1 signs, one per integration
     # block (e.g. L5 Neuman-Hofman, one sign per 1 ms primary period).
     # Indexed by the channel's ms_elapsed — align with `init_state`'s
@@ -54,15 +47,6 @@ class TrackConfig:
     # PLL discriminator: "costas" (data-tolerant, default) or "atan2"
     # (full-range four-quadrant, for dataless pilot components).
     pll_discriminator: str = "costas"
-    # Accumulator z-plane dtype for the composite bank kernel: "f32" (exact)
-    # or "bf16" (tracking-grade: halves the z-stream HBM traffic; measured
-    # ~5% faster at the flagship scenario and parity-tested to ~1e-3 relative
-    # — inside the tracking noise floor, see
-    # tests/test_pallas.py::test_bf16_z_tracking_grade and the on-chip
-    # closed-loop A/B data/benchmarks/bf16z_loop_ab.json). With
-    # "pallas_bank_auto", "bf16" routes single-antenna banks to the composite
-    # kernel (the variant the win was measured on).
-    z_dtype: str = "f32"
     # Coherent post-integration: accumulate the (overlay-wiped) accumulators
     # over this many consecutive blocks before each discriminator/filter
     # update (the Tracking.jl extended-integration role). Extends coherent

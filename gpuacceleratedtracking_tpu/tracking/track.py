@@ -2,8 +2,8 @@
 
 The on-device equivalent of Tracking.jl's `track` loop (which the reference's
 CPU baseline benchmarks via `Tracking.downconvert_and_correlate!`,
-`/root/reference/src/benchmarks.jl:35-80`), designed TPU-first per SURVEY.md §7
-step 4: the whole loop body is one jitted function, multi-millisecond runs are a
+`/root/reference/src/benchmarks.jl:35-80`), designed per SURVEY.md §7 step 4:
+the whole loop body is one jitted function, multi-millisecond runs are a
 `lax.scan` whose carries are the NCO phases and filter states — zero host
 round-trips — and channel banks are `vmap`/`shard_map` batches of the same
 function.
@@ -251,8 +251,8 @@ def track(
     """Track a multi-block signal ``[num_blocks, ..., N]`` via `lax.scan`.
 
     Returns the final state and per-block stacked outputs. The scan carries the
-    full loop state on device — the TPU analog of the reference's host-driven
-    per-ms kernel relaunch, with no launch gaps. ``ant_weights``: optional
+    full loop state on device in place of the reference's host-driven
+    per-ms kernel relaunch. ``ant_weights``: optional
     ``(w_re, w_im)`` ``[A]`` beamforming weights (see `track_step`).
     """
 
@@ -261,102 +261,6 @@ def track(
         return track_step(config, codes, st, sre, sim, ant_weights)
 
     return jax.lax.scan(body, state, (signal_re, signal_im))
-
-
-def _bank_kernel_kwargs(config: TrackConfig) -> dict:
-    """Static kwargs for a bank-signature correlator from the config."""
-    kwargs = {"sampling_frequency": config.sampling_frequency}
-    if config.algorithm in (
-        "pallas_bank", "pallas_bank_rows", "pallas_bank_comp",
-        "pallas_bank_auto",
-    ):
-        kwargs["nominal_code_frequency"] = config.code_frequency
-        kwargs["nominal_carrier_frequency"] = config.intermediate_frequency
-    if config.algorithm.startswith("pallas_bank"):
-        if config.tile_rows is not None:
-            kwargs["tile_rows"] = config.tile_rows
-        if (
-            config.chans_per_step is not None
-            and config.algorithm != "pallas_bank_onehot"
-        ):
-            kwargs["chans_per_step"] = config.chans_per_step
-    if config.z_dtype == "bf16":
-        if config.algorithm in ("pallas_bank_comp", "pallas_bank_auto"):
-            # The measured tracking-grade mode (data/benchmarks/comp_ab.json)
-            # is bf16 z-planes WITH default-precision MACs — both halve the
-            # stream. (For "pallas_bank_auto", correlate_pallas_bank_auto
-            # itself warns if the resolved kernel cannot honor bf16-z.)
-            kwargs["z_dtype"] = jnp.bfloat16
-            kwargs["mac_precision"] = jax.lax.Precision.DEFAULT
-        else:
-            import warnings
-
-            warnings.warn(
-                f"TrackConfig(z_dtype='bf16') is ignored by algorithm "
-                f"{config.algorithm!r} (only the composite bank kernel has "
-                "bf16 accumulator planes); tracking runs in f32",
-                stacklevel=2,
-            )
-    return kwargs
-
-
-def _bank_code_tile_kwargs(
-    config: TrackConfig,
-    codes: jax.Array,
-    prn: jax.Array,
-    num_samples: Optional[int] = None,
-    num_ants: int = 1,
-) -> dict:
-    """Precomputed per-channel code tables for the Pallas bank kernels.
-
-    Returns ``{"code_tiles": ...}`` for ``pallas_bank`` / ``pallas_bank_onehot``
-    (empty for other algorithms), to be hoisted out of per-block scan loops.
-    """
-    from ..ops import pallas_epl
-
-    algorithm = config.algorithm
-    if algorithm == "pallas_bank_auto":
-        algorithm = pallas_epl.bank_algorithm_for(
-            num_samples or config.num_samples, config.sampling_frequency,
-            config.code_length, config.code_frequency, num_ants=num_ants,
-            z_dtype=jnp.bfloat16 if config.z_dtype == "bf16" else jnp.float32,
-            **({} if config.tile_rows is None
-               else {"tile_rows": config.tile_rows}),
-        )
-    if algorithm in ("pallas_bank", "pallas_bank_rows", "pallas_bank_comp"):
-        tile_kwargs = (
-            {} if config.tile_rows is None else {"tile_rows": config.tile_rows}
-        )
-        span = int(max(config.sample_shifts)) - int(min(config.sample_shifts))
-        if algorithm in ("pallas_bank_rows", "pallas_bank_comp"):
-            # Wide tap spans (L1 at fs >= 131 MHz) grow the code-tile halo.
-            tile_kwargs["tap_span"] = span
-        if algorithm == "pallas_bank_comp":
-            tile_kwargs.update(
-                num_ants=num_ants, num_taps=len(config.sample_shifts)
-            )
-        prepare = {
-            "pallas_bank": pallas_epl.prepare_bank_code_tiles,
-            "pallas_bank_rows": pallas_epl.prepare_bank_code_tiles_rows,
-            "pallas_bank_comp": pallas_epl.prepare_bank_code_tiles_comp,
-        }[algorithm]
-        return {
-            "code_tiles": prepare(
-                codes, prn,
-                code_length=config.code_length,
-                num_samples=num_samples or config.num_samples,
-                sampling_frequency=config.sampling_frequency,
-                nominal_code_frequency=config.code_frequency,
-                **tile_kwargs,
-            )
-        }
-    if algorithm == "pallas_bank_onehot":
-        return {
-            "code_tiles": pallas_epl.prepare_bank_code_tiles_onehot(
-                codes, prn, code_length=config.code_length
-            )
-        }
-    return {}
 
 
 @functools.partial(jax.jit, static_argnames=("config",))
@@ -376,12 +280,11 @@ def track_bank(
     multi-satellite capability of the reference's 3-D kernels
     (`/root/reference/src/algorithms.jl:637-718`) extended with closed loops.
 
-    When ``config.algorithm`` is a bank kernel (``pallas_bank*``), the whole
-    bank correlates in ONE kernel launch per block (channels ride the kernel
-    grid); otherwise each channel runs the per-channel algorithm under `vmap`.
-    NOTE: `vmap` of a `pallas_call` re-lowers the kernel per channel — for
-    Pallas banks always use a bank algorithm. ``ant_weights``: optional
-    ``(w_re, w_im)`` of shape ``[A]`` (shared) or ``[K, A]`` (per channel)
+    When ``config.algorithm`` is a bank correlator (``xla_bank``,
+    ``triton_bank``), the whole bank correlates in one call per block;
+    otherwise each channel runs the per-channel algorithm under `vmap`.
+    ``ant_weights``: optional ``(w_re, w_im)`` of shape ``[A]`` (shared) or
+    ``[K, A]`` (per channel)
     beamforming weights.
     """
     num_k = states.prn.shape[0]
@@ -406,16 +309,6 @@ def track_bank(
 
     if config.algorithm in registry.BANK_ALGORITHMS:
         corr = registry.get(config.algorithm)
-        kwargs = _bank_kernel_kwargs(config)
-        # PRNs are loop constants but ride the scan carry, so the per-channel
-        # code-table gather (+tile) would otherwise rebuild every block —
-        # hoist it out of the scan once.
-        kwargs.update(
-            _bank_code_tile_kwargs(
-                config, codes, states.prn,
-                num_ants=signal_re.shape[-2] if signal_re.ndim == 3 else 1,
-            )
-        )
 
         def body(st, sig):
             sre, sim = sig
@@ -428,7 +321,7 @@ def track_bank(
                 code_phase=st.code_phase,
                 sample_shifts=config.sample_shifts,
                 code_length=config.code_length,
-                **kwargs,
+                sampling_frequency=config.sampling_frequency,
             )
             return vmap_update(st, accum_re, accum_im)
 

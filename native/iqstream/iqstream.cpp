@@ -1,4 +1,4 @@
-// iqstream — native IQ sample ingest for the TPU tracking framework.
+// iqstream — native IQ sample ingest for the GNSS tracking framework.
 //
 // The reference generates synthetic signals on-device and has no IO path at
 // all (SURVEY.md §1: no data loader anywhere in /root/reference/src). A
@@ -8,7 +8,7 @@
 // framework's native data-loader: it decodes front-end sample formats
 // (interleaved int8 / int16 / float32 complex) into the structure-of-arrays
 // float32 planes the kernels consume (the SoA layout decision of
-// /root/reference/src/gen_signal.jl:181-184, kept on TPU), with a lock-free
+// /root/reference/src/gen_signal.jl:181-184, kept here), with a lock-free
 // single-producer/single-consumer ring buffer for real-time streaming.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).

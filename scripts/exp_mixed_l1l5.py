@@ -1,21 +1,19 @@
 #!/usr/bin/env python
-"""Mixed-constellation closed-loop benchmark: L1 bank + L5 dual bank, one chip.
+"""Mixed-constellation closed-loop benchmark: L1 bank + L5 dual bank, one card.
 
-The north-star sentence (BASELINE.md) is "≥1024 GPS L1+L5 channels tracked in
-real time on a v5e-8" — this measures its literal per-chip ingredient: one
-chip running BOTH a K1-channel GPS L1 bank (32.768 MHz, flagship rows/auto
-kernel) AND a K5-channel GPS L5 dual-component bank (2·K5 bank channels, NH
-wipe-off + pilot atan2 closure) every 1 ms block, strictly sequentially on the
-single device stream. The reference never times any closed loop on GPU, let
+One card runs BOTH a K1-channel GPS L1 bank (32.768 MHz) AND a K5-channel GPS
+L5 dual-component bank (2·K5 bank channels, NH wipe-off + pilot atan2
+closure) every 1 ms block, strictly sequentially on the single device stream,
+through the platform's bank correlator (``bank``: ``triton_bank`` on the
+GPU). The reference never times any closed loop on GPU, let
 alone a mixed-band one (`/root/reference/scripts/run_benchmarks_gpsl5.jl` is
 open-loop; its paper calls L5 M=4 L=7 unsolved, paper.tex:345).
 
 Timing: paired-unroll differential medians over block count (dispatch cost
-cancels; fence = host materialization of a scalar combining BOTH banks'
-outputs). Output: data/benchmarks/track/MixedTrack_*.json per scenario.
+cancels; the fence waits on a scalar combining BOTH banks' outputs). Output: data/benchmarks/track/MixedTrack_*.json per scenario.
 
 Scenarios: (512 L1 + 32 L5-dual) — the VERDICT ask — and (960 L1 + 64
-L5-dual) = 1024 total satellite channels, the north-star mix on one chip.
+L5-dual) = 1024 total satellite channels on one card.
 """
 
 import json
@@ -29,7 +27,6 @@ import jax
 import jax.numpy as jnp
 
 from gpuacceleratedtracking_tpu.models import GPSL1, GPSL5, gen_signal, soa
-from gpuacceleratedtracking_tpu.bench.autotune import best_launch
 from gpuacceleratedtracking_tpu.bench.harness import (
     REALTIME_BOUND_S,
     add_metadata,
@@ -44,11 +41,11 @@ from gpuacceleratedtracking_tpu.tracking import (
 )
 
 N = 32768
+ALGORITHM = "bank"
 BLOCKS = 8
 TRIALS = 7
-# (L1 channels, L5 dual channels, L5 samples per 1 ms block). n5=32768
-# (32.768 MHz) keeps L5 on the transition kernel; n5=65536 (65.536 MHz,
-# wideband front end, 0.156 chips/sample) routes the rows kernel for L5.
+# (L1 channels, L5 dual channels, L5 samples per 1 ms block): 32.768 MHz
+# and the 65.536 MHz wideband L5 front end.
 SCENARIOS = [(512, 32, 32768), (960, 64, 32768), (960, 64, 65536)]
 
 
@@ -58,14 +55,9 @@ def build(k1, k5, n5):
     l1 = GPSL1()
     l5i, l5q = GPSL5(), GPSL5(quadrature=True)
 
-    launch1 = best_launch("pallas_bank_auto", k1, N, 1, 3, "GPSL1")
-    cfg1 = TrackConfig.for_system(
-        l1, fs, N, algorithm="pallas_bank_auto", **launch1
-    )
-    launch5 = best_launch("pallas_bank_auto", 2 * k5, n5, 1, 3, "GPSL5")
+    cfg1 = TrackConfig.for_system(l1, fs, N, algorithm=ALGORITHM)
     cfg5 = dual_config(TrackConfig.for_system(
-        l5i, fs5, n5, algorithm="pallas_bank_auto", use_secondary=False,
-        **launch5,
+        l5i, fs5, n5, algorithm=ALGORITHM, use_secondary=False,
     ))
 
     st1 = init_state(
@@ -96,13 +88,12 @@ def build(k1, k5, n5):
         def run():
             _, o1 = track_bank(cfg1, codes1, st1, sre1, sim1)
             _, o5 = track_bank_dual(cfg5, codes5i, codes5q, st5, sre5, sim5)
-            # Fence leaf depends on BOTH banks: materializing it proves both
-            # finished (single device stream).
+            # The fence leaf depends on BOTH banks (single device stream).
             return fence(o1, o5)
 
         return run, ()
 
-    return make_fn, launch1, launch5
+    return make_fn
 
 
 def main():
@@ -117,7 +108,7 @@ def main():
         if path.exists():
             print(f"skip (exists): {path.name}")
             continue
-        make_fn, launch1, launch5 = build(k1, k5, n5)
+        make_fn = build(k1, k5, n5)
         stats = benchmark_differential(make_fn, BLOCKS, trials=TRIALS)
         floor = max(stats.median, 1e-9)
         total = k1 + k5
@@ -130,26 +121,21 @@ def main():
             "bank_channels": k1 + 2 * k5,
             "blocks": BLOCKS,
             "trials": TRIALS,
-            "launch_l1": launch1,
-            "launch_l5": launch5,
         }
         res.update(stats.to_dict())
         res["realtime_ratio"] = floor / REALTIME_BOUND_S
         res["realtime_channels"] = total * REALTIME_BOUND_S / floor
         res["samples_per_s"] = (k1 + 2 * k5) * N / floor
-        # Chips needed so THIS mix runs inside real time, ASSUMING linear
-        # scaling when the heterogeneous mix splits across chips (per-launch
-        # fixed costs make real splits slightly worse; derive production
-        # chip counts from measured per-chip sub-mix cells like the 512+32
-        # re-measurement instead).
-        res["chips_for_realtime_linear_est"] = int(
+        # Cards needed so THIS mix runs inside real time, ASSUMING linear
+        # scaling when the mix splits across cards.
+        res["cards_for_realtime_linear_est"] = int(
             np.ceil(floor / REALTIME_BOUND_S)
         )
-        add_metadata(res, "TPU", "pallas_bank_auto")
+        add_metadata(res, jax.devices()[0], ALGORITHM)
         path.write_text(json.dumps(res, indent=1))
         print(json.dumps({k: res[k] for k in (
             "l1_channels", "l5_dual_channels", "Median", "realtime_ratio",
-            "realtime_channels", "chips_for_realtime_linear_est",
+            "realtime_channels", "cards_for_realtime_linear_est",
         )}))
 
 

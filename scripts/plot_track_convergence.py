@@ -85,7 +85,7 @@ def main(out_path):
     for ax in axes:
         ax.grid(True, alpha=0.3)
         ax.legend(fontsize=8)
-    # Convergence annotations (the RESULTS.md claim: +/-1.5 Hz by ~800 ms).
+    # Convergence annotations: mean |Doppler error| over the last 50 ms.
     final = {k: abs(r["dop_err"][-50:]).mean() for k, r in runs.items()}
     axes[0].text(
         0.99, 0.05,

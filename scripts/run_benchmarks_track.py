@@ -7,7 +7,7 @@ the external Tracking.jl fork and are never benchmarked on GPU).
 Sweep: channel-bank size K at the north-star 32.768 MHz GPS L1 scenario plus a
 moderate 4.096 MHz rate, full DLL/PLL/FLL loop closure per 1 ms block. The
 headline derived metric is ``realtime_channels``: how many satellite channels
-one chip tracks in real time. Each config saves immediately (resume-safe)
+one card tracks in real time. Each config saves immediately (resume-safe)
 under data/benchmarks/track/.
 """
 
@@ -24,15 +24,13 @@ from gpuacceleratedtracking_tpu.bench import (
 
 params = {
     "GNSS": "GPSL1",
-    # K=512 is the per-chip share of the north-star K=1024 bank on a 2-chip
-    # channel mesh (`parallel.bank.track_bank_sharded`) — measured so the
-    # multi-chip real-time claim derives from data, not linear extrapolation.
+    # K=512 is the per-card share of a K=1024 bank on a 2-card channel mesh
+    # (`parallel.bank.track_bank_sharded`).
     "num_samples": [4096, 32768],
     "num_channels": [32, 256, 512, 1024],
     "num_ants": 1,
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto", "pallas_bank", "xla_bank"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank", "xla_bank"],
     "blocks": 8,
     "trials": 7,
 }
@@ -46,8 +44,7 @@ m4_params = {
     "num_channels": [64, 256],
     "num_ants": 4,
     "num_correlators": [3, 7],
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
@@ -61,8 +58,7 @@ glonass_params = {
     "num_samples": 32768,
     "num_channels": [64, 256],
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
@@ -76,8 +72,7 @@ galileo_params = {
     "num_samples": 32768,
     "num_channels": [64, 256],
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
@@ -91,8 +86,7 @@ beidou_params = {
     "num_samples": 32768,
     "num_channels": [64, 256],
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
@@ -106,56 +100,35 @@ dual_params = {
     "num_samples": 32768,
     "num_channels": [16, 64, 128, 256],
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
 
-# At 65.536 MHz the L5 chip rate drops to 0.156 chips/sample — inside the
-# per-row boundary kernel's envelope, so `pallas_bank_auto` routes the
-# flagship rows kernel instead of the transition kernel (~4x cheaper per
-# channel at 2x the sample rate). Wideband L5 front ends sample at >= 2x
-# the 10.23 MHz code rate anyway; this is the deployed configuration.
+# Wideband L5 front ends sample at >= 2x the 10.23 MHz code rate: 65.536 MHz
+# is the deployed configuration.
 dual_params_wide = {
     "GNSS": "GPSL5",
     "num_samples": 65536,
     "num_channels": [16, 64, 128, 256],
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
 }
 
 # Wide-span cells — the TOP of the reference envelope (L1 at 131/262 MHz,
 # `/root/reference/scripts/run_benchmarks_gpsl1.jl:8` N=2^17/2^18), where one
-# EPL chip spans >= 128 samples. Round 5's multi-row replica halo runs these
-# on the rows kernel (pre-r5: ValueError -> 100x-slower xla_bank fallback).
+# EPL chip spans >= 128 samples.
 wide_params = {
     "GNSS": "GPSL1",
     "num_samples": [131072, 262144],
     "num_channels": [256, 1024],
     "num_ants": 1,
     "num_correlators": 3,
-    "algorithm": ["pallas_bank_auto"],
-    "processor": ["TPU"],
+    "algorithm": ["triton_bank"],
     "blocks": 8,
     "trials": 7,
-}
-
-# The pre-r5 fallback for the same cells, committed for the speedup claim.
-# Few blocks: xla_bank at these shapes runs ~0.1-0.5 s per BLOCK.
-wide_fallback_params = {
-    "GNSS": "GPSL1",
-    "num_samples": [131072, 262144],
-    "num_channels": [256, 1024],
-    "num_ants": 1,
-    "num_correlators": 3,
-    "algorithm": ["xla_bank"],
-    "processor": ["TPU"],
-    "blocks": 2,
-    "trials": 5,
 }
 
 if __name__ == "__main__":
@@ -173,7 +146,3 @@ if __name__ == "__main__":
         prefix="DualTrackBenchmark",
     )
     run_sweep(wide_params, run_track_benchmark, out, prefix="TrackBenchmark")
-    run_sweep(
-        wide_fallback_params, run_track_benchmark, out,
-        prefix="TrackBenchmark",
-    )

@@ -154,53 +154,44 @@ class TestCorrelation:
         assert 0.4 * N < got[0].real < 0.6 * N
         assert got[0].real == pytest.approx(got[2].real, abs=1.0)
 
-    @pytest.mark.parametrize("n_samples,algo", [
-        (8192, "pallas_bank"),        # ~4 samples/chip: transition kernel
-        (32768, "pallas_bank_rows"),  # ~16 samples/chip: rows kernel
-    ])
-    def test_bank_kernels(self, n_samples, algo):
-        # Parity vs the per-sample XLA oracle on randomized channels, at
-        # double GPS L1's transition density (2046 chips/ms).
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import (
-            bank_algorithm_for,
-        )
+    @pytest.mark.parametrize("n_samples", [8192, 32768])
+    def test_bank_kernels(self, n_samples, bank_algorithm):
+        # Parity vs the float64 oracle on randomized channels, at double GPS
+        # L1's transition density (2046 chips/ms).
+        from gpuacceleratedtracking_tpu.bench import oracle
 
         system = BeiDouB1I()
         K = 3
         fs = n_samples / 1e-3
-        assert bank_algorithm_for(
-            n_samples, fs, system.code_length, system.code_frequency
-        ) == algo
         rng = np.random.default_rng(11)
         signal, _ = gen_signal(system, 0, 1500.0, n_samples)
         sre, sim = soa(signal)
-        dops = 1500.0 + rng.uniform(-3000, 3000, K)
-        phases = rng.uniform(0, 2 * np.pi, K)
-        cph = rng.uniform(0, system.code_length, K)
+        dops = (1500.0 + rng.uniform(-3000, 3000, K)).astype(np.float32)
+        phases = rng.uniform(0, 2 * np.pi, K).astype(np.float32)
+        cph = rng.uniform(0, system.code_length, K).astype(np.float32)
         shifts = tuple(int(s) for s in correlator_sample_shifts(
             system, EPLCorrelator(3), fs))
-
-        def run(name):
-            fn = jax.jit(functools.partial(
-                get_algorithm(name), sample_shifts=shifts,
-                code_length=system.code_length, sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
-            ))
-            are, aim = fn(
-                sre, sim, jnp.asarray(system.codes),
-                jnp.arange(K, dtype=jnp.int32),
-                jnp.asarray(dops, jnp.float32),
-                carrier_phase=jnp.asarray(phases, jnp.float32),
-                code_frequency=jnp.full(
-                    (K,), system.code_frequency, jnp.float32),
-                code_phase=jnp.asarray(cph, jnp.float32),
-            )
-            return np.asarray(are), np.asarray(aim)
-
-        got = run("pallas_bank_auto")
-        want = run("xla_bank")
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=6.0)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=6.0)
+        fn = jax.jit(functools.partial(
+            get_algorithm(bank_algorithm), sample_shifts=shifts,
+            code_length=system.code_length, sampling_frequency=fs,
+        ))
+        are, aim = fn(
+            sre, sim, jnp.asarray(system.codes),
+            jnp.arange(K, dtype=jnp.int32), jnp.asarray(dops),
+            carrier_phase=jnp.asarray(phases),
+            code_frequency=jnp.full((K,), system.code_frequency, jnp.float32),
+            code_phase=jnp.asarray(cph),
+        )
+        got = np.asarray(are) + 1j * np.asarray(aim)
+        for k in range(K):
+            want = oracle.correlate(
+                signal, system.codes, k, float(dops[k]), fs, float(phases[k]),
+                float(np.float32(system.code_frequency)), float(cph[k]),
+                shifts)
+            np.testing.assert_allclose(got[k].real, want.real, rtol=2e-3,
+                                       atol=6.0)
+            np.testing.assert_allclose(got[k].imag, want.imag, rtol=2e-3,
+                                       atol=6.0)
 
 
 class TestAcquisition:
@@ -253,7 +244,7 @@ class TestClosedLoop:
         mixed = sigs[0] + sigs[1]
         sre, sim = (np.asarray(x).reshape(num_ms, N) for x in soa(mixed))
         config = TrackConfig.for_system(
-            system, fs, N, algorithm="pallas_bank_auto",
+            system, fs, N, algorithm="xla_bank",
         )
         assert len(config.secondary_code) == 20   # 1 ms period: no expansion
         states = init_state(np.arange(K), carrier_doppler=dops + 30.0)

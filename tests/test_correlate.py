@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from gpuacceleratedtracking_tpu.bench import oracle
 from gpuacceleratedtracking_tpu.models import (
     GPSL1,
     GPSL5,
@@ -34,19 +35,11 @@ GOLDEN = np.array([1476.0, 2500.0, 1476.0])
 
 def numpy_oracle(system, prn, carrier_freq, fs, carrier_phase, code_freq,
                  code_phase, num_samples, shifts, signal):
-    """Float64 reference correlator, written independently of the JAX ops."""
-    n = np.arange(num_samples, dtype=np.float64)
-    carrier = np.exp(1j * (2 * np.pi * carrier_freq / fs * n + carrier_phase))
-    dw = np.asarray(signal).astype(np.complex128) * np.conj(carrier)
-    out = []
-    for d in shifts:
-        idx = np.mod(
-            np.floor(code_freq / fs * (n + d) + code_phase).astype(np.int64),
-            system.code_length,
-        )
-        rep = system.codes[idx, prn].astype(np.float64)
-        out.append(np.sum(dw[..., :] * rep, axis=-1))
-    return np.stack(out, axis=-1)
+    """Float64 reference correlator (`bench.oracle`), independent of the
+    JAX ops."""
+    return oracle.correlate(
+        np.asarray(signal)[..., :num_samples], system.codes, prn,
+        carrier_freq, fs, carrier_phase, code_freq, code_phase, shifts)
 
 
 def run_fused(system, signal, fs, shifts, *, prn=0, fcar=1500.0, phicar=0.0,
@@ -176,7 +169,7 @@ class TestAgainstOracle:
 
 class TestQuantizedReplica:
     def test_error_envelope(self):
-        """Quantized-NCO replica error vs exact replica — the TPU analog of
+        """Quantized-NCO replica error vs exact replica — the counterpart of
         `scripts/code_replica_experiment.jl` (texture error: mean 0.03 %,
         max 3.17 %)."""
         system = GPSL1()
@@ -209,9 +202,12 @@ class TestCoherentIntegration:
     two code periods and EPL doubles ([2952, 5000, 2952] for the golden
     scenario at 2x duration)."""
 
-    @pytest.mark.parametrize("algo", ["fused_xla", "pallas_fused", "pallas_bank"])
+    @pytest.mark.parametrize("algo", ["fused_xla", "xla_bank", "triton_bank"])
     def test_two_ms_block(self, algo):
         from gpuacceleratedtracking_tpu.ops import registry
+        from gpuacceleratedtracking_tpu.ops.triton_bank import (
+            correlate_triton_bank,
+        )
 
         system = GPSL1()
         signal, fs = gen_signal(system, 0, 1500.0, 5000, duration=2e-3)
@@ -221,13 +217,14 @@ class TestCoherentIntegration:
             for s in correlator_sample_shifts(system, EPLCorrelator(3), fs)
         )
         corr = registry.get(algo)
-        if algo == "pallas_bank":
+        if algo == "triton_bank":
+            corr = functools.partial(correlate_triton_bank, interpret=True)
+        if algo != "fused_xla":
             are, _ = corr(
                 sre, sim, jnp.asarray(system.codes), jnp.zeros(1, jnp.int32),
                 jnp.full(1, 1500.0), fs, jnp.zeros(1),
                 jnp.full(1, system.code_frequency), jnp.zeros(1),
                 sample_shifts=shifts, code_length=system.code_length,
-                nominal_code_frequency=system.code_frequency,
             )
             are = np.asarray(are)[0]
         else:

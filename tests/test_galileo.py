@@ -2,9 +2,8 @@
 
 The reference supports only GPS L1/L5 (`GNSSDICT`,
 `/root/reference/src/GPUAcceleratedTracking.jl:39-42`). E1's BOC(1,1)
-meander — a sign flip MID-chip — doubles the transition density the
-bank kernels' replica formulations must reconstruct per 128-lane row,
-making it their stress test. The subcarrier is folded into the code table
+meander — a sign flip MID-chip — doubles the chip-transition density the
+bank correlators must place, making it their stress test. The subcarrier is folded into the code table
 (half-chip pairs), so every correlator kernel runs unchanged.
 """
 
@@ -123,56 +122,45 @@ class TestCorrelation:
         # falling edge, so early/late are far below a BPSK code's 0.75 N.
         assert abs(got[0].real) < 0.6 * N
 
-    @pytest.mark.parametrize("n_samples,algo", [
-        (8192, "pallas_bank"),        # 0.25 half-chips/sample: transition
-        (32768, "pallas_bank_rows"),  # 0.0625: rows (num_j ~ 9 boundaries)
-    ])
-    def test_bank_kernels_boc_meander(self, n_samples, algo):
-        # The meander stress test: bank kernels must reconstruct a replica
-        # with a transition at EVERY half-chip boundary. Parity vs the
-        # per-sample XLA oracle on randomized channels.
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import (
-            bank_algorithm_for,
-        )
+    @pytest.mark.parametrize("n_samples", [8192, 32768])
+    def test_bank_kernels_boc_meander(self, n_samples, bank_algorithm):
+        # The meander stress test: the bank must reconstruct a replica with
+        # a transition at EVERY half-chip boundary. Parity vs the float64
+        # oracle on randomized channels.
+        from gpuacceleratedtracking_tpu.bench import oracle
 
         system = GalileoE1()
         K = 3
         fs = n_samples / 1e-3
-        assert bank_algorithm_for(
-            n_samples, fs, system.code_length, system.code_frequency
-        ) == algo
         rng = np.random.default_rng(4)
         signal, _ = gen_signal(system, 0, 1500.0, n_samples)
         sre, sim = soa(signal)
-        dops = 1500.0 + rng.uniform(-3000, 3000, K)
-        phases = rng.uniform(0, 2 * np.pi, K)
-        cph = rng.uniform(0, system.code_length, K)
+        dops = (1500.0 + rng.uniform(-3000, 3000, K)).astype(np.float32)
+        phases = rng.uniform(0, 2 * np.pi, K).astype(np.float32)
+        cph = rng.uniform(0, system.code_length, K).astype(np.float32)
         shifts = tuple(int(s) for s in correlator_sample_shifts(
             system, EPLCorrelator(3), fs))
-
-        def run(name):
-            fn = jax.jit(functools.partial(
-                get_algorithm(name), sample_shifts=shifts,
-                code_length=system.code_length, sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
-            ))
-            are, aim = fn(
-                sre, sim, jnp.asarray(system.codes),
-                jnp.arange(K, dtype=jnp.int32),
-                jnp.asarray(dops, jnp.float32),
-                carrier_phase=jnp.asarray(phases, jnp.float32),
-                code_frequency=jnp.full(
-                    (K,), system.code_frequency, jnp.float32),
-                code_phase=jnp.asarray(cph, jnp.float32),
-            )
-            return np.asarray(are), np.asarray(aim)
-
-        got = run("pallas_bank_auto")
-        want = run("xla_bank")
-        # f32 FMA-order chip-boundary flips (amplitude +/-2) at doubled
-        # transition density: wider envelope than the GPS L1 tests.
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=9.0)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=9.0)
+        fn = jax.jit(functools.partial(
+            get_algorithm(bank_algorithm), sample_shifts=shifts,
+            code_length=system.code_length, sampling_frequency=fs,
+        ))
+        are, aim = fn(
+            sre, sim, jnp.asarray(system.codes),
+            jnp.arange(K, dtype=jnp.int32), jnp.asarray(dops),
+            carrier_phase=jnp.asarray(phases),
+            code_frequency=jnp.full((K,), system.code_frequency, jnp.float32),
+            code_phase=jnp.asarray(cph),
+        )
+        got = np.asarray(are) + 1j * np.asarray(aim)
+        for k in range(K):
+            want = oracle.correlate(
+                signal, system.codes, k, float(dops[k]), fs, float(phases[k]),
+                float(np.float32(system.code_frequency)), float(cph[k]),
+                shifts)
+            np.testing.assert_allclose(got[k].real, want.real, rtol=2e-3,
+                                       atol=9.0)
+            np.testing.assert_allclose(got[k].imag, want.imag, rtol=2e-3,
+                                       atol=9.0)
 
 
 class TestAcquisition:
@@ -226,7 +214,7 @@ class TestClosedLoop:
         mixed = sigs[0] + sigs[1]
         sre, sim = (np.asarray(x).reshape(num_ms, N) for x in soa(mixed))
         config = TrackConfig.for_system(
-            system, fs, N, algorithm="pallas_bank_auto",
+            system, fs, N, algorithm="xla_bank",
         )
         assert config.secondary_code == ()     # nothing to wipe: data, not NH
         states = init_state(np.arange(K), carrier_doppler=dops + 25.0)
@@ -268,7 +256,7 @@ class TestClosedLoop:
         mixed = sigs[0] + sigs[1]
         sre, sim = (np.asarray(x).reshape(num_ms, N) for x in soa(mixed))
         config = TrackConfig.for_system(
-            system, fs, N, algorithm="pallas_bank_auto",
+            system, fs, N, algorithm="xla_bank",
             pll_discriminator="atan2",
         )
         assert len(config.secondary_code) == 100   # 25 signs x 4 blocks

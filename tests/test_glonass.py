@@ -101,7 +101,7 @@ class TestCorrelation:
         # Prompt at perfect alignment = N.
         assert got[1].real == pytest.approx(N, rel=1e-5)
 
-    def test_fdma_bank_kernel(self):
+    def test_fdma_bank_kernel(self, bank_algorithm):
         # K channels, same code, distinct FDMA carrier offsets: the bank
         # kernel's per-channel carrier frequency is exactly the FDMA split.
         system = GLONASSL1()
@@ -119,12 +119,10 @@ class TestCorrelation:
         sim = jnp.asarray(mixed.imag, jnp.float32)
         bank = jax.jit(
             functools.partial(
-                get_algorithm("pallas_bank"),
+                get_algorithm(bank_algorithm),
                 sample_shifts=shifts,
                 code_length=system.code_length,
                 sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
-                tile_rows=8,
             )
         )
         prns = jnp.zeros(K, jnp.int32)
@@ -142,9 +140,9 @@ class TestCorrelation:
             # Each channel's prompt sees its own satellite at full power.
             assert got[k, 1].real > 0.9 * N
 
-    def test_fdma_rows_kernel(self):
-        # GLONASS L1OF through the per-row bank kernel (0.511 Mchip/s at
-        # 8.192 MHz: ~8 chips per 128-lane row).
+    def test_fdma_rows_kernel(self, bank_algorithm):
+        # GLONASS L1OF through the bank at 8.192 MHz (0.511 Mchip/s: ~16
+        # samples per chip).
         system = GLONASSL1()
         N, K = 8192, 3
         fs = N / 1e-3
@@ -157,11 +155,10 @@ class TestCorrelation:
         )
         bank = jax.jit(
             functools.partial(
-                get_algorithm("pallas_bank_rows"),
+                get_algorithm(bank_algorithm),
                 sample_shifts=shifts,
                 code_length=system.code_length,
                 sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
             )
         )
         are, aim = bank(

@@ -1,7 +1,9 @@
-"""Pallas kernel tests (interpret mode on CPU) against the XLA oracle.
+"""Bank correlator tests on the CPU: the plain XLA bank (``xla_bank``) and
+the Pallas Triton kernel (``triton_bank``, interpret mode) against the
+float64 oracle and the golden values.
 
 Mirrors the reference's per-algorithm golden testsets
-(`/root/reference/test/algorithms.jl`) with the TPU algorithm registry.
+(`/root/reference/test/algorithms.jl`) over the bank algorithms.
 """
 
 import functools
@@ -11,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from gpuacceleratedtracking_tpu.bench import oracle
 from gpuacceleratedtracking_tpu.models import (
     GPSL1,
     GPSL5,
@@ -20,27 +23,54 @@ from gpuacceleratedtracking_tpu.models import (
     soa,
 )
 from gpuacceleratedtracking_tpu.ops import registry
+from gpuacceleratedtracking_tpu.ops.triton_bank import correlate_triton_bank
 
 GOLDEN = np.array([1476.0, 2500.0, 1476.0])
+BANKS = ["xla_bank", "triton_bank"]
+
+
+def bank_fn(algo):
+    if algo == "triton_bank":
+        return functools.partial(correlate_triton_bank, interpret=True)
+    return registry.get(algo)
+
+
+def run_bank(algo, system, sre, sim, fs, shifts, prns, fcar, *, phicar=0.0,
+             fcode=None, phicode=0.0):
+    """Bank accumulators as complex ``[K, (A,) L]``; scalars broadcast."""
+    k = len(prns)
+    full = lambda v: jnp.broadcast_to(jnp.asarray(v, jnp.float32), (k,))
+    fn = jax.jit(functools.partial(
+        bank_fn(algo), sample_shifts=tuple(int(s) for s in shifts),
+        code_length=system.code_length, sampling_frequency=fs))
+    are, aim = fn(
+        sre, sim, jnp.asarray(system.codes), jnp.asarray(prns, jnp.int32),
+        full(fcar), carrier_phase=full(phicar),
+        code_frequency=full(system.code_frequency if fcode is None else fcode),
+        code_phase=full(phicode),
+    )
+    return np.asarray(are) + 1j * np.asarray(aim)
 
 
 def run(algo, system, signal, fs, shifts, *, prn=0, fcar=1500.0, phicar=0.0,
         phicode=0.0):
+    """One channel through a bank algorithm: complex ``[(A,) L]``."""
     sre, sim = soa(signal)
-    fn = jax.jit(
-        functools.partial(
-            registry.get(algo),
-            sample_shifts=tuple(int(s) for s in shifts),
-            code_length=system.code_length,
-        )
-    )
-    are, aim = fn(sre, sim, jnp.asarray(system.codes), prn, fcar, fs, phicar,
-                  system.code_frequency, phicode)
-    return np.asarray(are) + 1j * np.asarray(aim)
+    return run_bank(algo, system, sre, sim, fs, shifts, [prn], fcar,
+                    phicar=phicar, phicode=phicode)[0]
 
 
-@pytest.mark.parametrize("algo", ["pallas_taps", "pallas_fused"])
+def f64(system, signal, fs, shifts, *, prn=0, fcar=1500.0, phicar=0.0,
+        fcode=None, phicode=0.0):
+    return oracle.correlate(
+        signal, system.codes, prn, fcar, fs, phicar,
+        system.code_frequency if fcode is None else fcode, phicode, shifts)
+
+
+@pytest.mark.parametrize("algo", BANKS)
 class TestPallasKernels:
+    """Single-channel scenarios through each bank algorithm."""
+
     def test_golden(self, algo):
         system = GPSL1()
         signal, fs = gen_signal(system, 0, 1500.0, 2500)
@@ -60,7 +90,7 @@ class TestPallasKernels:
         )
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
         got = run(algo, system, signal, fs, shifts, **kwargs)
-        want = run("fused_xla", system, signal, fs, shifts, **kwargs)
+        want = f64(system, signal, fs, shifts, **kwargs)
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.2)
 
     def test_multi_antenna(self, algo):
@@ -77,7 +107,7 @@ class TestPallasKernels:
         signal, fs = gen_signal(system, 0, 1500.0, 8192)
         shifts = correlator_sample_shifts(system, EPLCorrelator(7), fs)
         got = run(algo, system, signal, fs, shifts)
-        want = run("fused_xla", system, signal, fs, shifts)
+        want = f64(system, signal, fs, shifts)
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.3)
 
     def test_l5(self, algo):
@@ -85,52 +115,70 @@ class TestPallasKernels:
         signal, fs = gen_signal(system, 3, 2000.0, 32768)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
         got = run(algo, system, signal, fs, shifts, prn=3, fcar=2000.0)
-        want = run("fused_xla", system, signal, fs, shifts, prn=3, fcar=2000.0)
+        want = f64(system, signal, fs, shifts, prn=3, fcar=2000.0)
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=3.0)
 
     def test_wide_span(self, algo):
-        # Tap span >= 128 samples (multi-row flat shift, q in {1, 2}) at an
-        # interpret-affordable N — the reference envelope's fs >= 131 MHz
-        # regime, where its mega-kernel keeps working
-        # (`/root/reference/src/algorithms.jl:720-825`).
+        # Tap span >= 128 samples at an interpret-affordable N — the reference
+        # envelope's fs >= 131 MHz regime, where its mega-kernel keeps
+        # working (`/root/reference/src/algorithms.jl:720-825`).
         system = GPSL1()
         signal, fs = gen_signal(system, 0, 1500.0, 4096)
         shifts = np.array([-150, 0, 163])
         got = run(algo, system, signal, fs, shifts)
-        want = run("fused_xla", system, signal, fs, shifts)
+        want = f64(system, signal, fs, shifts)
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.3)
 
     def test_tile_unaligned_n(self, algo):
-        # N = 2500 (not a multiple of the 2048 tile) already covered by golden;
-        # also check a sub-tile N.
+        # N not a multiple of the 128-sample row or the kernel's tile. (A
+        # 0.3-chip start phase keeps the late tap's halo sample, 1023 chips
+        # in at zero phase, off an exact chip boundary, where float64's own
+        # rounding decides the oracle's chip.)
         system = GPSL1()
-        signal, fs = gen_signal(system, 0, 500.0, 1000)
+        signal, fs = gen_signal(system, 0, 500.0, 1000, start_code_phase=0.3)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        got = run(algo, system, signal, fs, shifts, fcar=500.0)
-        want = run("fused_xla", system, signal, fs, shifts, fcar=500.0)
+        got = run(algo, system, signal, fs, shifts, fcar=500.0, phicode=0.3)
+        want = f64(system, signal, fs, shifts, fcar=500.0, phicode=0.3)
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.2)
 
 
+def _random_case(system, N, K, seed=0, num_ants=None):
+    rng = np.random.default_rng(seed)
+    fs = N / 1e-3
+    signal, _ = gen_signal(system, 0, 1500.0, N, num_ants=num_ants)
+    return dict(
+        signal=signal, fs=fs,
+        shifts=correlator_sample_shifts(system, EPLCorrelator(3), fs),
+        prns=np.arange(K) % 32,
+        fcar=(1500.0 + rng.uniform(-4000.0, 4000.0, K)).astype(np.float32),
+        phicar=rng.uniform(0, 2 * np.pi, K).astype(np.float32),
+        fcode=(system.code_frequency + rng.uniform(-3, 3, K)).astype(np.float32),
+        phicode=rng.uniform(0, system.code_length, K).astype(np.float32),
+    )
+
+
+def _check_bank_vs_f64(algo, system, case, atol_over_n=1e-4):
+    sre, sim = soa(case["signal"])
+    got = run_bank(algo, system, sre, sim, case["fs"], case["shifts"],
+                   case["prns"], case["fcar"], phicar=case["phicar"],
+                   fcode=case["fcode"], phicode=case["phicode"])
+    n = case["signal"].shape[-1]
+    for k in range(len(case["prns"])):
+        want = f64(system, case["signal"], case["fs"], case["shifts"],
+                   prn=int(case["prns"][k]), fcar=float(case["fcar"][k]),
+                   phicar=float(case["phicar"][k]),
+                   fcode=float(case["fcode"][k]),
+                   phicode=float(case["phicode"][k]))
+        np.testing.assert_allclose(got[k], want, rtol=0, atol=atol_over_n * n,
+                                   err_msg=f"channel {k}")
+    return got
+
+
+@pytest.mark.parametrize("algo", BANKS)
 class TestBankKernel:
-    def _bank(self, system, sre, sim, fs, shifts, prns, dops, phases=None):
-        import jax.numpy as jnp
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import correlate_pallas_bank
+    """Multi-channel bank scenarios, each against the float64 oracle."""
 
-        K = len(prns)
-        phases = jnp.zeros(K) if phases is None else jnp.asarray(phases)
-        fn = jax.jit(functools.partial(
-            correlate_pallas_bank, sample_shifts=tuple(int(s) for s in shifts),
-            code_length=system.code_length, sampling_frequency=fs,
-            nominal_code_frequency=system.code_frequency,
-        ))
-        return fn(
-            sre, sim, jnp.asarray(system.codes), jnp.asarray(prns, jnp.int32),
-            1500.0 + jnp.asarray(dops, jnp.float32), carrier_phase=phases,
-            code_frequency=jnp.full((K,), system.code_frequency, jnp.float32),
-            code_phase=phases,
-        )
-
-    def test_matches_per_channel_oracle(self):
+    def test_matches_per_channel_oracle(self, algo):
         system = GPSL1()
         N = 4096
         fs = N / 1e-3
@@ -141,586 +189,188 @@ class TestBankKernel:
         mixed = sum(sigs[1:], sigs[0])
         sre, sim = soa(mixed)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        are, aim = self._bank(system, sre, sim, fs, shifts, prns, dops)
-        assert are.shape == (4, 3)
-        oracle = registry.get("fused_xla")
+        got = run_bank(algo, system, sre, sim, fs, shifts, prns,
+                       1500.0 + dops)
+        assert got.shape == (4, 3)
         for k in range(4):
-            wre, wim = oracle(
-                sre, sim, jnp.asarray(system.codes), int(prns[k]),
-                1500.0 + float(dops[k]), fs, 0.0, system.code_frequency, 0.0,
-                tuple(int(s) for s in shifts), system.code_length,
-            )
-            np.testing.assert_allclose(np.asarray(are)[k], np.asarray(wre),
-                                       rtol=1e-3, atol=0.5)
-            np.testing.assert_allclose(np.asarray(aim)[k], np.asarray(wim),
-                                       rtol=1e-3, atol=0.5)
+            want = f64(system, mixed, fs, shifts, prn=int(prns[k]),
+                       fcar=1500.0 + float(dops[k]))
+            np.testing.assert_allclose(got[k], want, rtol=1e-3, atol=0.5)
 
-    def test_chans_per_step_batching(self):
-        # G channels per grid step (incl. K % G != 0 edge-padding) must match
-        # the unbatched kernel exactly.
-        import jax.numpy as jnp
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import correlate_pallas_bank
-
-        system = GPSL1()
-        N = 2048
-        fs = N / 1e-3
-        K = 6
-        prns = np.arange(K)
-        dops = np.linspace(-2000.0, 2000.0, K)
-        mixed = sum(
-            (gen_signal(system, int(p), float(d), N)[0]
-             for p, d in zip(prns[1:], dops[1:])),
-            gen_signal(system, 0, float(dops[0]), N)[0],
-        )
-        sre, sim = soa(mixed)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-
-        def run(g):
-            fn = jax.jit(functools.partial(
-                correlate_pallas_bank,
-                sample_shifts=tuple(int(s) for s in shifts),
-                code_length=system.code_length, sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
-                chans_per_step=g,
-            ))
-            return fn(
-                sre, sim, jnp.asarray(system.codes),
-                jnp.asarray(prns, jnp.int32),
-                1500.0 + jnp.asarray(dops, jnp.float32),
-                carrier_phase=jnp.zeros(K),
-                code_frequency=jnp.full((K,), system.code_frequency, jnp.float32),
-                code_phase=jnp.zeros(K),
-            )
-
-        base_re, base_im = run(1)
-        for g in (2, 4):   # 4 exercises the K=6 -> 8 padding path
-            are, aim = run(g)
-            assert are.shape == (K, 3)
-            np.testing.assert_allclose(np.asarray(are), np.asarray(base_re),
-                                       rtol=1e-6)
-            np.testing.assert_allclose(np.asarray(aim), np.asarray(base_im),
-                                       rtol=1e-6)
-
-    def test_recon_and_carrier_variants_exact(self):
-        # The one-hot-matmul replica reconstruction must be BIT-exact against
-        # the mask formulation (same step functions, different scatter), and
-        # the hoisted-phasor carrier must match the in-kernel NCO (identical
-        # f32 phase decomposition; on the CPU backend both use XLA cos/sin).
-        import jax.numpy as jnp
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import correlate_pallas_bank
-
-        system = GPSL1()
-        N = 4096
-        fs = N / 1e-3
-        K = 5
-        prns = np.arange(K)
-        dops = np.linspace(-4000.0, 4000.0, K)
-        signal, _ = gen_signal(system, 0, 1500.0, N)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-
-        def run(carrier, recon):
-            fn = jax.jit(functools.partial(
-                correlate_pallas_bank,
-                sample_shifts=tuple(int(s) for s in shifts),
-                code_length=system.code_length, sampling_frequency=fs,
-                nominal_code_frequency=system.code_frequency,
-                carrier=carrier, recon=recon, tile_rows=16,
-            ))
-            are, aim = fn(
-                sre, sim, jnp.asarray(system.codes),
-                jnp.asarray(prns, jnp.int32),
-                1500.0 + jnp.asarray(dops, jnp.float32),
-                carrier_phase=jnp.linspace(0.0, 3.0, K).astype(jnp.float32),
-                code_frequency=jnp.full((K,), system.code_frequency, jnp.float32),
-                code_phase=jnp.linspace(0.0, 900.0, K).astype(jnp.float32),
-            )
-            return np.asarray(are), np.asarray(aim)
-
-        for carrier in ("inkernel", "hoisted"):
-            # Same carrier, different reconstruction: bit-exact.
-            ref = run(carrier, "mask")
-            got = run(carrier, "onehot")
-            np.testing.assert_array_equal(got[0], ref[0], err_msg=carrier)
-            np.testing.assert_array_equal(got[1], ref[1], err_msg=carrier)
-        # Across carrier variants the cos/sin *implementations* differ by
-        # <= 1 ulp (XLA full-tile vs in-kernel vectorization; Mosaic on real
-        # TPU): accumulators agree to ~sqrt(N) ulp, not bitwise.
-        ref = run("inkernel", "mask")
-        got = run("hoisted", "onehot")
-        np.testing.assert_allclose(got[0], ref[0], atol=2e-3)
-        np.testing.assert_allclose(got[1], ref[1], atol=2e-3)
-
-    def test_multi_antenna_bank(self):
+    def test_multi_antenna_bank(self, algo):
         system = GPSL1()
         signal, fs = gen_signal(system, 0, 1500.0, 2500, num_ants=2)
         sre, sim = soa(signal)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        are, aim = self._bank(system, sre, sim, fs, shifts, [0, 0], [0.0, 0.0])
-        assert are.shape == (2, 2, 3)
+        acc = run_bank(algo, system, sre, sim, fs, shifts, [0, 0], 1500.0)
+        assert acc.shape == (2, 2, 3)
         for k in range(2):
             for a in range(2):
-                np.testing.assert_allclose(np.asarray(are)[k, a], GOLDEN,
-                                           rtol=3.5e-4)
+                np.testing.assert_allclose(acc[k, a].real, GOLDEN, rtol=3.5e-4)
 
-    def test_l5_bank(self):
+    def test_l5_bank(self, algo):
         system = GPSL5()
         N = 32768
         fs = N / 1e-3
         signal, _ = gen_signal(system, 3, 2000.0, N)
         sre, sim = soa(signal)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import correlate_pallas_bank
-
-        fn = jax.jit(functools.partial(
-            correlate_pallas_bank, sample_shifts=tuple(int(s) for s in shifts),
-            code_length=system.code_length, sampling_frequency=fs,
-            nominal_code_frequency=system.code_frequency,
-        ))
-        are, aim = fn(
-            sre, sim, jnp.asarray(system.codes),
-            jnp.array([3, 3], jnp.int32),
-            jnp.full((2,), 2000.0, jnp.float32),
-            carrier_phase=jnp.zeros(2),
-            code_frequency=jnp.full((2,), system.code_frequency, jnp.float32),
-            code_phase=jnp.zeros(2),
-        )
-        want = run("fused_xla", system, signal, fs, shifts, prn=3, fcar=2000.0)
+        got = run_bank(algo, system, sre, sim, fs, shifts, [3, 3], 2000.0)
+        want = f64(system, signal, fs, shifts, prn=3, fcar=2000.0)
         for k in range(2):
-            np.testing.assert_allclose(
-                np.asarray(are)[k] + 1j * np.asarray(aim)[k], want,
-                rtol=1e-3, atol=3.0,
-            )
+            np.testing.assert_allclose(got[k], want, rtol=1e-3, atol=3.0)
 
-    def test_l5_m4_l7_challenge_config(self):
-        # The reference's "unsolved challenge": GPS L5, 4 antennas, 7 taps was
-        # not real-time on either of its GPUs (`paper/paper.tex:345`). The
-        # bank kernel must at least produce oracle-exact accumulators for the
-        # config (its real-time headroom is measured on hardware; RESULTS.md).
+    def test_l5_m4_l7_challenge_config(self, algo):
+        # The reference's "unsolved challenge": GPS L5, 4 antennas, 7 taps
+        # was not real-time on either of its GPUs (`paper/paper.tex:345`).
         system = GPSL5()
         N = 32768
         fs = N / 1e-3
         signal, _ = gen_signal(system, 6, -1800.0, N, num_ants=4)
         sre, sim = soa(signal)
         shifts = correlator_sample_shifts(system, EPLCorrelator(7), fs)
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import correlate_pallas_bank
+        got = run_bank(algo, system, sre, sim, fs, shifts, [6], -1800.0)
+        assert got.shape == (1, 4, 7)
+        want = f64(system, signal, fs, shifts, prn=6, fcar=-1800.0)
+        np.testing.assert_allclose(got[0], want, rtol=2e-3, atol=1e-4 * N)
 
-        fn = jax.jit(functools.partial(
-            correlate_pallas_bank, sample_shifts=tuple(int(s) for s in shifts),
-            code_length=system.code_length, sampling_frequency=fs,
-            nominal_code_frequency=system.code_frequency,
-        ))
-        are, aim = fn(
-            sre, sim, jnp.asarray(system.codes),
-            jnp.array([6], jnp.int32),
-            jnp.full((1,), -1800.0, jnp.float32),
-            carrier_phase=jnp.zeros(1),
-            code_frequency=jnp.full((1,), system.code_frequency, jnp.float32),
-            code_phase=jnp.zeros(1),
-        )
-        assert are.shape == (1, 4, 7)
-        oracle = registry.get("fused_xla")
-        wre, wim = oracle(
-            sre, sim, jnp.asarray(system.codes), 6, -1800.0, fs, 0.0,
-            system.code_frequency, 0.0,
-            tuple(int(s) for s in shifts), system.code_length,
-        )
-        # f32 chip-phase rounding at L5's 10.23 Mchip/s misplaces a few chip
-        # boundaries by one sample (<= 0.02% of N here) — the same error class
-        # as the reference's texture path, whose envelope is mean 0.03% /
-        # max 3.17% (`paper/paper.tex:326-329`).
-        np.testing.assert_allclose(np.asarray(are)[0], np.asarray(wre),
-                                   rtol=2e-3, atol=8.0)
-        np.testing.assert_allclose(np.asarray(aim)[0], np.asarray(wim),
-                                   rtol=2e-3, atol=8.0)
-
-    def test_xla_bank_matches(self):
-        system = GPSL1()
-        N = 4096
-        fs = N / 1e-3
-        signal, _ = gen_signal(system, 2, 900.0, N)
-        sre, sim = soa(signal)
-        shifts = tuple(int(s) for s in
-                       correlator_sample_shifts(system, EPLCorrelator(3), fs))
-        fn = jax.jit(functools.partial(
-            registry.get("xla_bank"), sample_shifts=shifts,
-            code_length=system.code_length, sampling_frequency=fs,
-        ))
-        are, aim = fn(
-            sre, sim, jnp.asarray(system.codes), jnp.array([2, 2], jnp.int32),
-            jnp.full((2,), 900.0, jnp.float32),
-            carrier_phase=jnp.zeros(2),
-            code_frequency=jnp.full((2,), system.code_frequency, jnp.float32),
-            code_phase=jnp.zeros(2),
-        )
-        want = run("fused_xla", system, signal, fs, shifts, prn=2, fcar=900.0)
-        np.testing.assert_allclose(np.asarray(are)[0] + 1j * np.asarray(aim)[0],
-                                   want, rtol=1e-5, atol=1e-2)
-
-    def test_wide_span_raises(self):
-        # The transition kernel keeps its span < 128 contract (static routing
-        # never selects it there — the rows/comp kernels carry wide spans).
-        system = GPSL1()
-        signal, fs = gen_signal(system, 0, 1500.0, 131072)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(7), fs)
-        with pytest.raises(ValueError):
-            self._bank(system, sre, sim, fs, shifts, [0], [0.0])
-
-    def test_onehot_wide_span(self):
-        # The one-hot bank variant accepts any span (multi-row halo).
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import (
-            correlate_pallas_bank_onehot,
-        )
-
+    def test_onehot_wide_span(self, algo):
+        # Any tap span works: every tap is its own gather, no replica halo.
         system = GPSL1()
         N, K = 4096, 2
         fs = N / 1e-3
         signal, _ = gen_signal(system, 0, 1500.0, N)
         sre, sim = soa(signal)
         shifts = (-160, 0, 170)
-        fn = jax.jit(functools.partial(
-            correlate_pallas_bank_onehot, sample_shifts=shifts,
-            code_length=system.code_length, tile_rows=8,
-            sampling_frequency=fs,
-        ))
-        are, aim = fn(
-            sre, sim, jnp.asarray(system.codes),
-            jnp.zeros(K, jnp.int32), jnp.full(K, 1500.0),
-            carrier_phase=jnp.zeros(K),
-            code_frequency=jnp.full(K, system.code_frequency),
-            code_phase=jnp.zeros(K),
-        )
-        want = run("fused_xla", system, signal, fs, shifts)
-        got = np.asarray(are)[0] + 1j * np.asarray(aim)[0]
-        np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.3)
+        got = run_bank(algo, system, sre, sim, fs, shifts, [0] * K, 1500.0)
+        want = f64(system, signal, fs, shifts)
+        for k in range(K):
+            np.testing.assert_allclose(got[k], want, rtol=1e-3, atol=0.3)
 
-
-class TestBankRowsKernel:
-    """Per-row boundary bank kernel (`pallas_bank_rows`): the high-rate
-    flagship. Must be bit-identical to the transition kernel (same exact
-    floor/ceil chip arithmetic, different reconstruction)."""
-
-    def _run(self, algo, system, sre, sim, fs, shifts, prns, dops,
-             carrier_phase, code_freq, code_phase, **kw):
-        fn = jax.jit(functools.partial(
-            registry.get(algo), sample_shifts=tuple(int(s) for s in shifts),
-            code_length=system.code_length, sampling_frequency=fs,
-            nominal_code_frequency=system.code_frequency, **kw,
-        ))
-        are, aim = fn(
-            sre, sim, jnp.asarray(system.codes), jnp.asarray(prns, jnp.int32),
-            jnp.asarray(dops, jnp.float32),
-            carrier_phase=jnp.asarray(carrier_phase, jnp.float32),
-            code_frequency=jnp.asarray(code_freq, jnp.float32),
-            code_phase=jnp.asarray(code_phase, jnp.float32),
-        )
-        return np.asarray(are), np.asarray(aim)
-
-    def _random_case(self, system, N, K, seed=0):
-        rng = np.random.default_rng(seed)
-        fs = N / 1e-3
-        signal, _ = gen_signal(system, 0, 1500.0, N)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        return dict(
-            system=system, sre=sre, sim=sim, fs=fs, shifts=shifts,
-            prns=np.arange(K) % 32,
-            dops=1500.0 + rng.uniform(-4000.0, 4000.0, K),
-            carrier_phase=rng.uniform(0, 2 * np.pi, K),
-            code_freq=system.code_frequency + rng.uniform(-3, 3, K),
-            code_phase=rng.uniform(0, system.code_length, K),
-        )
-
-    def test_wide_span_parity(self):
-        # Tap span >= 2*128 samples (the reference envelope's L1 fs >= 131 MHz
-        # regime scaled to an interpret-affordable N): multi-row `_flat_shift`
-        # (q in {1, 2}) + the grown replica halo, vs the per-sample oracle.
-        case = self._random_case(GPSL1(), 8192, 4, seed=5)
-        case["shifts"] = np.array([-160, 0, 170])
-        got = self._run("pallas_bank_rows", **case)
-        want = self._run("xla_bank", **case)
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=4.5)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=4.5)
-        # Multi-tile: the tap halo crosses into the next tile's rows.
-        got2 = self._run("pallas_bank_rows", **case, tile_rows=32,
-                         chans_per_step=2)
-        np.testing.assert_allclose(got2[0], want[0], rtol=2e-3, atol=4.5)
-        np.testing.assert_allclose(got2[1], want[1], rtol=2e-3, atol=4.5)
-
-    def test_reference_envelope_wide_cell(self):
-        # GPS L1 at fs = 131.072 MHz (N = 2^17): unit tap shift = 64 samples,
-        # L=3 span = 128 — the smallest envelope cell round 4 could not serve
-        # at bank speed (`/root/reference/scripts/run_benchmarks_gpsl1.jl:8`).
-        # The auto route must resolve to the rows kernel and match the oracle.
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import bank_algorithm_for
-
+    def test_wide_span_parity(self, algo):
         system = GPSL1()
-        assert bank_algorithm_for(
-            131072, 131.072e6, 1023, system.code_frequency
-        ) == "pallas_bank_rows"
-        case = self._random_case(system, 131072, 2, seed=9)
+        case = _random_case(system, 8192, 4, seed=5)
+        case["shifts"] = np.array([-160, 0, 170])
+        _check_bank_vs_f64(algo, system, case)
+
+    def test_reference_envelope_wide_cell(self, algo):
+        # GPS L1 at fs = 131.072 MHz (N = 2^17): unit tap shift = 64
+        # samples, L=3 span = 128 (`/root/reference/scripts/
+        # run_benchmarks_gpsl1.jl:8`).
+        system = GPSL1()
+        case = _random_case(system, 131072, 2, seed=9)
         assert int(case["shifts"].max() - case["shifts"].min()) >= 128
-        got = self._run("pallas_bank_auto", **case)
-        want = self._run("xla_bank", **case)
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=8.0)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=8.0)
+        _check_bank_vs_f64(algo, system, case)
 
-    def test_rowmm_tap_mac_matches_sum2d(self):
-        # The MXU-reduction tap MAC ("rowmm": ones-vector lane contraction +
-        # per-antenna selector row contraction) must agree with the shipped
-        # full-VPU reduce ("sum2d") to f32 reassociation tolerance (different
-        # reduction order; exactness is not expected or required).
-        case = self._random_case(GPSL1(), 32768, 8, seed=3)
-        a = self._run("pallas_bank_rows", tap_mac="sum2d", chans_per_step=4,
-                      **case)
-        b = self._run("pallas_bank_rows", tap_mac="rowmm", chans_per_step=4,
-                      **case)
-        np.testing.assert_allclose(b[0], a[0], rtol=1e-4, atol=0.3)
-        np.testing.assert_allclose(b[1], a[1], rtol=1e-4, atol=0.3)
+    def test_l5_wideband(self, algo):
+        # 65.536 MHz GPS L5 (10.23 MHz code): 10230 chips per block, where
+        # a plain f32 code phase would misplace chip boundaries.
+        system = GPSL5()
+        _check_bank_vs_f64(algo, system, _random_case(system, 65536, 3, seed=2))
 
-    @pytest.mark.parametrize("n_samples,k", [(32768, 8), (8192, 5)])
-    def test_matches_transition_kernel(self, n_samples, k):
-        # Same exact floor/ceil chip arithmetic as the transition kernel up
-        # to f32 FMA-contraction order, which can flip a rare chip boundary
-        # by one sample (amplitude ±2) — the shared envelope both kernels
-        # have vs the per-sample oracle.
-        case = self._random_case(GPSL1(), n_samples, k)
-        got = self._run("pallas_bank_rows", **case)
-        want = self._run("pallas_bank", **case)
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=4.5)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=4.5)
-
-    def test_rows_matches_transition_gpsl5_wideband(self):
-        # 65.536 MHz puts GPS L5 (10.23 MHz code) at 0.156 chips/sample —
-        # inside the rows kernel's envelope, the deployed wideband-L5 config
-        # (DualTrackBenchmark num_samples=65536 cells). Parity vs the
-        # transition kernel: both share the exact floor/ceil chip arithmetic;
-        # with 10x L1's chip-boundary count the f32 FMA boundary-flip
-        # envelope scales accordingly (each flip is +/-2 on one sample;
-        # ~2e-4 of the matched prompt scale N).
-        case = self._random_case(GPSL5(), 65536, 3, seed=2)
-        got = self._run("pallas_bank_rows", **case)
-        want = self._run("pallas_bank", **case)
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=24.0)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=24.0)
-
-    def test_golden_prompt(self):
+    def test_golden_prompt(self, algo):
         system = GPSL1()
         N = 32768
         fs = N / 1e-3
         signal, _ = gen_signal(system, 0, 1500.0, N)
         sre, sim = soa(signal)
         shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        z = np.zeros(3)
-        are, _ = self._run(
-            "pallas_bank_rows", system, sre, sim, fs, shifts, [0, 0, 0],
-            z + 1500.0, z, z + system.code_frequency, z,
-        )
-        np.testing.assert_array_equal(are[:, 1], np.full(3, float(N)))
+        acc = run_bank(algo, system, sre, sim, fs, shifts, [0, 0, 0], 1500.0)
+        np.testing.assert_allclose(acc[:, 1].real, np.full(3, float(N)),
+                                   rtol=1e-6)
 
-    def test_multi_tile_and_chans_per_step(self):
-        # tile_rows < N/128 exercises the multi-tile nominal-base rebasing;
-        # chans_per_step exercises group batching incl. the K padding path.
-        # Retiling itself moves f32 phase-rebasing boundaries (identically in
-        # both bank kernels), so each shape is checked bit-exactly against the
-        # transition kernel at the SAME tile shape instead of across shapes.
-        case = self._random_case(GPSL1(), 16384, 6, seed=3)
-        base = self._run("pallas_bank_rows", **case)
-        for kw in ({}, {"tile_rows": 64}):
-            got = self._run("pallas_bank_rows", **case, **kw,
-                            chans_per_step=4)
-            want = self._run("pallas_bank", **case, **kw)
-            np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=4.5,
-                                       err_msg=str(kw))
-            np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=4.5,
-                                       err_msg=str(kw))
-        # Group batching itself must not change results at all.
-        np.testing.assert_array_equal(
-            self._run("pallas_bank_rows", **case, chans_per_step=4)[0],
-            base[0],
-        )
-
-    def test_multi_antenna(self):
+    def test_multi_tile_and_padded_k(self, algo):
+        # K=5 and eight 2048-sample kernel tiles.
         system = GPSL1()
-        signal, fs = gen_signal(system, 0, 1500.0, 32768, num_ants=2)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        z = np.zeros(2)
-        are, aim = self._run(
-            "pallas_bank_rows", system, sre, sim, fs, shifts, [0, 0],
-            z + 1500.0, z, z + system.code_frequency, z,
-        )
-        assert are.shape == (2, 2, 3)
-        np.testing.assert_array_equal(are[:, :, 1], np.full((2, 2), 32768.0))
+        case = _random_case(system, 16384, 5, seed=3)
+        _check_bank_vs_f64(algo, system, case)
 
-    def test_low_rate_rejected(self):
-        # 2.5 MHz GPS L1 is ~0.41 chips/sample -> a row touches ~54 chips;
-        # the rows kernel refuses and the transition kernel is the right tool.
-        case = self._random_case(GPSL1(), 2500, 2)
-        with pytest.raises(ValueError, match="chips/sample"):
-            self._run("pallas_bank_rows", **case)
-
-    def test_auto_selects_per_scenario(self):
-        # pallas_bank_auto resolves statically: rows kernel at high rates,
-        # transition kernel at low rates — outputs match the resolved kernel.
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import bank_algorithm_for
-
+    def test_wide_span_multi_antenna(self, algo):
         system = GPSL1()
-        assert bank_algorithm_for(
-            32768, 32.768e6, 1023, system.code_frequency
-        ) == "pallas_bank_rows"
-        assert bank_algorithm_for(
-            2500, 2.5e6, 1023, system.code_frequency
-        ) == "pallas_bank"
-        for n in (32768, 2500):
-            case = self._random_case(system, n, 3)
-            got = self._run("pallas_bank_auto", **case)
-            want = self._run(bank_algorithm_for(
-                n, n * 1e3, 1023, system.code_frequency), **case)
-            np.testing.assert_array_equal(got[0], want[0])
-
-
-class TestBankCompKernel:
-    """Composite bank kernel (`pallas_bank_comp`): conj(carrier)*code folded
-    into one plane per channel, taps/antennas/IQ on one wide MXU contraction.
-    Mathematically identical to the rows kernel via the exact tone identity
-    carrier[u-d] = carrier[u]*e^{-2*pi*i*f*d}; f32 rounding order differs, so
-    parity is tolerance-based (~1e-5 relative), not bit-exact."""
-
-    _run = TestBankRowsKernel._run
-    _random_case = TestBankRowsKernel._random_case
-
-    @pytest.mark.parametrize("n_samples,k", [(32768, 8), (8192, 5)])
-    def test_matches_rows_kernel(self, n_samples, k):
-        case = self._random_case(GPSL1(), n_samples, k)
-        got = self._run("pallas_bank_comp", **case, chans_per_step=4)
-        want = self._run("pallas_bank_rows", **case)
-        scale = np.abs(want[0]).max()
-        np.testing.assert_allclose(got[0], want[0], atol=3e-5 * scale)
-        np.testing.assert_allclose(got[1], want[1], atol=3e-5 * scale)
-
-    def test_bf16_z_tracking_grade(self):
-        # Opt-in bf16 composite planes — the one measured flagship win on
-        # chip (1.730 vs 1.818 ms, data/benchmarks/comp_ab.json). bf16
-        # products bound parity at ~1e-3 relative: tracking-grade (far
-        # inside the discriminator noise floor), deliberately not the
-        # golden-exact default.
-        import jax
-
-        case = self._random_case(GPSL1(), 32768, 4, seed=11)
-        want = self._run("pallas_bank_rows", **case)
-        got = self._run(
-            "pallas_bank_comp", **case, chans_per_step=2,
-            z_dtype=jnp.bfloat16,
-            mac_precision=jax.lax.Precision.DEFAULT,
-        )
-        scale = np.abs(want[0]).max()
-        np.testing.assert_allclose(got[0], want[0], atol=4e-3 * scale)
-        np.testing.assert_allclose(got[1], want[1], atol=4e-3 * scale)
-
-    def test_golden_prompt(self):
-        system = GPSL1()
-        N = 32768
-        fs = N / 1e-3
-        signal, _ = gen_signal(system, 0, 1500.0, N)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        z = np.zeros(3)
-        are, _ = self._run(
-            "pallas_bank_comp", system, sre, sim, fs, shifts, [0, 0, 0],
-            z + 1500.0, z, z + system.code_frequency, z, chans_per_step=3,
-        )
-        np.testing.assert_allclose(are[:, 1], np.full(3, float(N)), rtol=1e-5)
-
-    def test_halo_terms_at_exact_tile_multiple(self):
-        # N == n_pad (one 256-row tile exactly): the late-tap terms
-        # u in [N, N+d_l) fall off the padded grid and ride the dedicated
-        # halo contraction — random code phases make them nonzero.
-        case = self._random_case(GPSL1(), 32768, 4, seed=7)
-        got = self._run("pallas_bank_comp", **case, chans_per_step=2)
-        want = self._run("pallas_bank_rows", **case)
-        scale = np.abs(want[0]).max()
-        np.testing.assert_allclose(got[0], want[0], atol=3e-5 * scale)
-        np.testing.assert_allclose(got[1], want[1], atol=3e-5 * scale)
-
-    def test_multi_tile_and_padded_k(self):
-        case = self._random_case(GPSL1(), 32768, 5, seed=3)
-        want = self._run("pallas_bank_comp", **case, chans_per_step=1)
-        # K=5 with G=3 exercises the channel-padding path; tile_rows=64 the
-        # multi-tile nominal-base rebasing (4 tiles).
-        got = self._run("pallas_bank_comp", **case, chans_per_step=3)
-        np.testing.assert_array_equal(got[0], want[0])
-        multi = self._run("pallas_bank_comp", **case, tile_rows=64,
-                          chans_per_step=2)
-        ref = self._run("pallas_bank_rows", **case, tile_rows=64)
-        scale = np.abs(ref[0]).max()
-        np.testing.assert_allclose(multi[0], ref[0], atol=3e-5 * scale)
-
-    def test_multi_antenna(self):
-        system = GPSL1()
-        signal, fs = gen_signal(system, 0, 1500.0, 32768, num_ants=2)
-        sre, sim = soa(signal)
-        shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
-        z = np.zeros(2)
-        are, aim = self._run(
-            "pallas_bank_comp", system, sre, sim, fs, shifts, [0, 0],
-            z + 1500.0, z, z + system.code_frequency, z, chans_per_step=2,
-        )
-        assert are.shape == (2, 2, 3)
-        np.testing.assert_allclose(
-            are[:, :, 1], np.full((2, 2), 32768.0), rtol=1e-5
-        )
-
-    def test_wide_span_multi_antenna(self):
-        # Wide taps + M=2: the comp kernel's signal shifts exceed one lane
-        # row and the last-tile halo correction spans halo_rows 128-lane
-        # slices (N == n_pad at tile_rows=32, so the correction carries real
-        # payload).
-        system = GPSL1()
-        case = self._random_case(system, 8192, 3, seed=6)
-        signal, _ = gen_signal(system, 0, 1500.0, 8192, num_ants=2)
-        case["sre"], case["sim"] = soa(signal)
+        case = _random_case(system, 8192, 3, seed=6, num_ants=2)
         case["shifts"] = np.array([-160, 0, 170])
-        got = self._run("pallas_bank_comp", **case, chans_per_step=2,
-                        tile_rows=32)
-        want = self._run("xla_bank", **case)
-        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=4.5)
-        np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=4.5)
+        got = _check_bank_vs_f64(algo, system, case)
+        assert got.shape == (3, 2, 3)
 
-    def test_unaligned_n(self):
-        # N=20000 (not a tile multiple): the shifted-in tail rides the S
-        # padding region and the halo input is all zeros.
-        case = self._random_case(GPSL1(), 20000, 3, seed=5)
-        got = self._run("pallas_bank_comp", **case, chans_per_step=3)
-        want = self._run("pallas_bank_rows", **case)
-        scale = np.abs(want[0]).max()
-        np.testing.assert_allclose(got[0], want[0], atol=3e-5 * scale)
+    def test_unaligned_n(self, algo):
+        system = GPSL1()
+        _check_bank_vs_f64(algo, system, _random_case(system, 20000, 3, seed=5))
 
-    def test_low_rate_rejected(self):
-        case = self._random_case(GPSL1(), 2500, 2)
-        with pytest.raises(ValueError, match="chips/sample"):
-            self._run("pallas_bank_comp", **case)
+
+def test_xla_bank_matches():
+    # The bank and the single-channel oracle path agree where their chip
+    # arithmetic coincides (nominal rate, zero phases).
+    system = GPSL1()
+    N = 4096
+    fs = N / 1e-3
+    signal, _ = gen_signal(system, 2, 900.0, N)
+    shifts = tuple(int(s) for s in
+                   correlator_sample_shifts(system, EPLCorrelator(3), fs))
+    sre, sim = soa(signal)
+    got = run_bank("xla_bank", system, sre, sim, fs, shifts, [2, 2], 900.0)
+    are, aim = jax.jit(functools.partial(
+        registry.get("fused_xla"), sample_shifts=shifts,
+        code_length=system.code_length))(
+        sre, sim, jnp.asarray(system.codes), 2, 900.0, fs, 0.0,
+        system.code_frequency, 0.0)
+    np.testing.assert_allclose(got[0], np.asarray(are) + 1j * np.asarray(aim),
+                               rtol=1e-5, atol=1e-2)
 
 
 def test_registry_names():
     names = registry.names()
-    for expected in ["fused_xla", "unfused_xla", "pallas_taps", "pallas_fused",
-                     "pallas_bank"]:
+    for expected in ["bank", "fused_xla", "triton_bank", "unfused_xla",
+                     "xla_bank"]:
         assert expected in names
+    assert {"bank", "xla_bank", "triton_bank"} <= registry.BANK_ALGORITHMS
     with pytest.raises(KeyError):
         registry.get("nope")
 
 
-def test_wide_span_fused_native():
-    # Tap span >= 128 samples runs NATIVELY in the fused kernel (multi-row
-    # replica halo) — a true reference-envelope cell (L=7 at 131 MHz, span
-    # 384 samples) that round 4 served only via the taps fallback.
+def test_bank_is_the_plain_bank_off_the_gpu():
+    # `bank` picks triton_bank only on the GPU; on the CPU it is xla_bank,
+    # output for output.
     system = GPSL1()
-    N = 131072  # 131 MHz: unit shift = 64 samples, span 7 taps = 384
+    signal, fs = gen_signal(system, 0, 1500.0, 2500)
+    sre, sim = soa(signal)
+    shifts = correlator_sample_shifts(system, EPLCorrelator(3), fs)
+    got = run_bank("bank", system, sre, sim, fs, shifts, [0, 1], 1500.0)
+    want = run_bank("xla_bank", system, sre, sim, fs, shifts, [0, 1], 1500.0)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_scalar_channel_parameters():
+    # Scalar parameters give one channel's [L] accumulators, so the bank
+    # correlators also serve single-channel `track`.
+    system = GPSL1()
+    signal, fs = gen_signal(system, 0, 1500.0, 2500)
+    sre, sim = soa(signal)
+    shifts = (-1, 0, 1)
+    for algo in BANKS:
+        fn = functools.partial(bank_fn(algo), sample_shifts=shifts,
+                               code_length=system.code_length,
+                               sampling_frequency=fs)
+        are, _ = fn(sre, sim, jnp.asarray(system.codes), 0, 1500.0,
+                    carrier_phase=0.0, code_frequency=system.code_frequency,
+                    code_phase=0.0)
+        assert are.shape == (3,)
+        np.testing.assert_allclose(np.asarray(are), GOLDEN, rtol=3.5e-4)
+
+
+def test_wide_span_fused_native():
+    # Tap span >= 128 samples through the single-channel fused path: L=7 at
+    # 131 MHz, span 384 samples.
+    system = GPSL1()
+    N = 131072
     signal, fs = gen_signal(system, 0, 1500.0, N)
     shifts = correlator_sample_shifts(system, EPLCorrelator(7), fs)
     assert int(max(shifts)) - int(min(shifts)) >= 128
-    got = run("pallas_fused", system, signal, fs, shifts)
-    want = run("fused_xla", system, signal, fs, shifts)
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2.0)
+    sre, sim = soa(signal)
+    are, aim = jax.jit(functools.partial(
+        registry.get("fused_xla"), sample_shifts=tuple(int(s) for s in shifts),
+        code_length=system.code_length))(
+        sre, sim, jnp.asarray(system.codes), 0, 1500.0, fs, 0.0,
+        system.code_frequency, 0.0)
+    want = f64(system, signal, fs, shifts)
+    np.testing.assert_allclose(np.asarray(are) + 1j * np.asarray(aim), want,
+                               rtol=1e-3, atol=2.0)

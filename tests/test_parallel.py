@@ -229,11 +229,13 @@ class TestTrackBankSharded:
         prompts = np.asarray(out.prompt_re)[-1]
         assert (prompts > 1500).all(), prompts
 
-    def test_bank_kernel_algorithm_sharded(self):
-        # Bank-signature kernel inside the (chan, time) mesh: one kernel
-        # launch per (shard, block) for all local channels.
+    def test_bank_kernel_algorithm_sharded(self, bank_algorithm):
+        # Bank correlator inside the (chan, time) mesh: one bank correlation
+        # per (shard, block) for all local channels, against the vmapped
+        # per-channel path on the same mesh.
         system, config, states, sre, sim = self._scenario(num_k=4, num_ms=20)
-        config_bank = dataclasses.replace(config, algorithm="pallas_bank")
+        config_bank = dataclasses.replace(config, algorithm=bank_algorithm)
+        config = dataclasses.replace(config, algorithm="fused_xla")
         mesh = channel_time_mesh(num_chan_shards=2, num_time_shards=2)
         final_b, out_b = track_bank_sharded(
             config_bank, jnp.asarray(system.codes), states, sre, sim, mesh=mesh
@@ -250,13 +252,13 @@ class TestTrackBankSharded:
             rtol=1e-4, atol=5e-3,
         )
 
-    def test_rows_kernel_sharded(self):
-        # The flagship per-row bank kernel on the (chan, time) mesh must
-        # reproduce its own unsharded run (8.192 MHz: the rows regime).
+    def test_rows_kernel_sharded(self, bank_algorithm):
+        # A bank correlator on the (chan, time) mesh must reproduce its own
+        # unsharded run at 8.192 MHz.
         system, config, states, sre, sim = self._scenario(
             num_k=4, num_ms=10, N=8192
         )
-        config_rows = dataclasses.replace(config, algorithm="pallas_bank_rows")
+        config_rows = dataclasses.replace(config, algorithm=bank_algorithm)
         mesh = channel_time_mesh(num_chan_shards=2, num_time_shards=2)
         final_s, out_s = track_bank_sharded(
             config_rows, jnp.asarray(system.codes), states, sre, sim, mesh=mesh
@@ -287,9 +289,7 @@ class TestTrackBankSharded:
         sre, sim = soa(sig)
         sre = sre.reshape(num_ms, N)
         sim = sim.reshape(num_ms, N)
-        config = TrackConfig.for_system(
-            system, fs, N, algorithm="pallas_bank_rows", chans_per_step=32
-        )
+        config = TrackConfig.for_system(system, fs, N, algorithm="xla_bank")
         rng = np.random.default_rng(0)
         dops = rng.uniform(-4000.0, 4000.0, num_k)
         states = init_state(

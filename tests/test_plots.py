@@ -13,7 +13,7 @@ from gpuacceleratedtracking_tpu.bench.plots import (
 
 def _kernel_frame():
     rows = []
-    for algo in ["pallas_fused", "fused_xla"]:
+    for algo in ["triton_bank", "fused_xla"]:
         for ants in [1, 4]:
             for n in [2048, 8192, 32768]:
                 rows.append(
@@ -23,7 +23,7 @@ def _kernel_frame():
                         "num_correlators": 3,
                         "num_samples": n,
                         "algorithm": algo,
-                        "Median": 1e-6 * n / 2048 * (1 if algo.startswith("p") else 3),
+                        "Median": 1e-6 * n / 2048 * (1 if algo.startswith("t") else 3),
                     }
                 )
     return pd.DataFrame(rows)

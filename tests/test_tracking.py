@@ -143,9 +143,9 @@ class TestClosedLoop:
         dop = np.asarray(out.carrier_doppler)
         assert abs(np.mean(dop[-50:]) - true_doppler) < 5.0
 
-    def test_track_bank_pallas_bank_kernel_matches_xla(self):
-        # One kernel launch per block for the whole bank (channels on the
-        # kernel grid) must reproduce the vmapped per-channel XLA loop.
+    def test_track_bank_pallas_bank_kernel_matches_xla(self, bank_algorithm):
+        # One bank correlation per block for the whole bank must reproduce
+        # the vmapped per-channel XLA loop.
         system = GPSL1()
         N, num_ms, K = 2048, 30, 3
         fs = N / 1e-3
@@ -162,16 +162,16 @@ class TestClosedLoop:
         sre, sim = sre.reshape(num_ms, N), sim.reshape(num_ms, N)
         states = init_state(np.arange(K), carrier_doppler=dops)
         outs = {}
-        for algo in ["fused_xla", "pallas_bank"]:
+        for algo in ["fused_xla", bank_algorithm]:
             config = TrackConfig.for_system(system, fs, N, algorithm=algo)
             _, out = track_bank(config, jnp.asarray(system.codes), states,
                                 sre, sim)
             outs[algo] = out
         np.testing.assert_allclose(
-            np.asarray(outs["pallas_bank"].prompt_re),
+            np.asarray(outs[bank_algorithm].prompt_re),
             np.asarray(outs["fused_xla"].prompt_re), rtol=5e-3, atol=10.0)
         np.testing.assert_allclose(
-            np.asarray(outs["pallas_bank"].carrier_doppler),
+            np.asarray(outs[bank_algorithm].carrier_doppler),
             np.asarray(outs["fused_xla"].carrier_doppler), rtol=1e-3, atol=1.0)
 
     def test_coherent_integration_rescues_weak_signal(self):
@@ -208,126 +208,6 @@ class TestClosedLoop:
             errs[k_coh] = abs(np.mean(dop[-50:]) - true_dop)
         assert errs[10] < 3.0, errs
         assert errs[1] > 15.0, errs   # 1 ms integration cannot hold this SNR
-
-    def test_track_bank_rows_kernel_matches_transition(self):
-        # The per-row boundary kernel closes the loop identically to the
-        # transition kernel at high sampling rates (the flagship regime).
-        system = GPSL1()
-        N, num_ms, K = 8192, 20, 3
-        fs = N / 1e-3
-        dops = np.array([-900.0, 100.0, 1500.0])
-        sigs = []
-        for prn, d in enumerate(dops):
-            scale = 1.0 + d / system.center_frequency
-            s, _ = gen_signal(system, prn, d, N * num_ms,
-                              duration=num_ms * 1e-3,
-                              code_frequency=system.code_frequency * scale)
-            sigs.append(s)
-        mixed = sum(sigs[1:], sigs[0])
-        sre, sim = soa(mixed)
-        sre, sim = sre.reshape(num_ms, N), sim.reshape(num_ms, N)
-        states = init_state(np.arange(K), carrier_doppler=dops)
-        outs = {}
-        for algo in ["pallas_bank", "pallas_bank_rows"]:
-            config = TrackConfig.for_system(system, fs, N, algorithm=algo)
-            _, out = track_bank(config, jnp.asarray(system.codes), states,
-                                sre, sim)
-            outs[algo] = out
-        np.testing.assert_allclose(
-            np.asarray(outs["pallas_bank_rows"].prompt_re),
-            np.asarray(outs["pallas_bank"].prompt_re), rtol=5e-3, atol=10.0)
-        np.testing.assert_allclose(
-            np.asarray(outs["pallas_bank_rows"].carrier_doppler),
-            np.asarray(outs["pallas_bank"].carrier_doppler),
-            rtol=1e-3, atol=1.0)
-
-    def test_track_bank_bf16z_tracking_grade_mode(self):
-        # TrackConfig(z_dtype="bf16") is the routed tracking-grade mode: with
-        # pallas_bank_auto it must select the composite kernel (the variant
-        # the on-chip win was measured on, data/benchmarks/comp_ab.json) and
-        # close the loop to the same trajectory as exact-f32 rows within
-        # tracking tolerance.
-        from gpuacceleratedtracking_tpu.ops.pallas_epl import (
-            bank_algorithm_for,
-        )
-
-        system = GPSL1()
-        N, num_ms, K = 8192, 20, 3
-        fs = N / 1e-3
-        assert bank_algorithm_for(
-            N, fs, system.code_length, system.code_frequency,
-            z_dtype=jnp.bfloat16,
-        ) == "pallas_bank_comp"
-        dops = np.array([-900.0, 100.0, 1500.0])
-        sigs = []
-        for prn, d in enumerate(dops):
-            scale = 1.0 + d / system.center_frequency
-            s, _ = gen_signal(system, prn, d, N * num_ms,
-                              duration=num_ms * 1e-3,
-                              code_frequency=system.code_frequency * scale)
-            sigs.append(s)
-        mixed = sum(sigs[1:], sigs[0])
-        sre, sim = soa(mixed)
-        sre, sim = sre.reshape(num_ms, N), sim.reshape(num_ms, N)
-        states = init_state(np.arange(K), carrier_doppler=dops)
-        outs = {}
-        for z in ["f32", "bf16"]:
-            config = TrackConfig.for_system(
-                system, fs, N, algorithm="pallas_bank_auto", z_dtype=z,
-                chans_per_step=1,
-            )
-            _, out = track_bank(config, jnp.asarray(system.codes), states,
-                                sre, sim)
-            outs[z] = out
-        scale = np.abs(np.asarray(outs["f32"].prompt_re)).max()
-        np.testing.assert_allclose(
-            np.asarray(outs["bf16"].prompt_re),
-            np.asarray(outs["f32"].prompt_re), atol=5e-3 * scale)
-        np.testing.assert_allclose(
-            np.asarray(outs["bf16"].carrier_doppler),
-            np.asarray(outs["f32"].carrier_doppler), rtol=1e-3, atol=1.0)
-        np.testing.assert_allclose(
-            np.asarray(outs["bf16"].code_phase),
-            np.asarray(outs["f32"].code_phase), rtol=1e-4, atol=5e-3)
-
-    def test_bf16z_unsupported_kernel_warns(self):
-        # ADVICE r4: a requested tracking-grade bf16-z mode must not degrade
-        # to f32 silently — both the auto wrapper (geometry fallback) and the
-        # TrackConfig kwargs path (incompatible algorithm) signal it.
-        import functools
-        import warnings
-
-        from gpuacceleratedtracking_tpu.ops import registry
-        from gpuacceleratedtracking_tpu.tracking.track import (
-            _bank_kernel_kwargs,
-        )
-
-        system = GPSL1()
-        N = 2500   # 0.41 chips/sample: auto falls back to pallas_bank
-        fs = N / 1e-3
-        signal, _ = gen_signal(system, 0, 1500.0, N)
-        sre, sim = soa(signal)
-        z = jnp.zeros(2, jnp.float32)
-        fn = functools.partial(
-            registry.get("pallas_bank_auto"), sre, sim,
-            jnp.asarray(system.codes), jnp.arange(2, dtype=jnp.int32),
-            z + 1500.0, fs, carrier_phase=z,
-            code_frequency=z + system.code_frequency, code_phase=z,
-            sample_shifts=(-1, 0, 1), code_length=system.code_length,
-            nominal_code_frequency=system.code_frequency,
-            z_dtype=jnp.bfloat16,
-        )
-        with pytest.warns(UserWarning, match="does not support bf16"):
-            fn()
-        with pytest.warns(UserWarning, match="ignored by algorithm"):
-            _bank_kernel_kwargs(TrackConfig.for_system(
-                system, fs, N, algorithm="pallas_bank_rows", z_dtype="bf16",
-            ))
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")   # supported combos stay silent
-            _bank_kernel_kwargs(TrackConfig.for_system(
-                system, fs, N, algorithm="pallas_bank_comp", z_dtype="bf16",
-            ))
 
     def test_track_bank_channels_independent(self):
         # Two channels, different PRNs/Dopplers, one shared front-end stream:
